@@ -6,21 +6,41 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the seg_fanin kernel from ``src/repro_torch/kernels/csrc``;
-3. kernel  - hold the kernel against its plain PyTorch version on the card
+2. build   - build both kernels from ``src/repro_torch/kernels/csrc``, one
+             ``nvcc`` per source, started together; print each kernel's
+             registers and shared memory;
+3. kernel  - hold seg_fanin against its plain PyTorch version on the card
              at the batch shapes (F = 24, 256, 1024 slots, rows = cells x 8)
              plus ragged layouts, ties, masked slots and a fully masked
              segment: bit equality;
-4. timing  - the kernel at the N=1025 shape (384 rows x 1024 slots) beside
+4. timing  - seg_fanin at the N=1025 shape (384 rows x 1024 slots) beside
              its bound and the plain version;
 5. main    - ``scale/batch/N=1025/R=32``, ``N=257/R=16`` and
              ``replicates/R=3`` at their full grids through
              ``repro_torch.experiments.runner.run_scenarios`` on cuda; every
-             scan step launches the kernel once, and R=3's mean throughput
+             scan step launches seg_fanin once, and R=3's mean throughput
              must sit inside its ``benchmarks/reference_bounds.json`` window;
 6. check   - R=3 in quick mode: kernel run == plain-version run on the card
              (bit-identical), a rerun is bit-identical, and the card agrees
-             with the CPU within the parity tolerance.
+             with the CPU within the parity tolerance;
+7. flash   - flash_attention against its plain version on the card in bf16
+             at granite-8b's prefill shape, granite at its max_seq_len, a
+             ragged S, gemma-7b's head dim 256 and a non-causal Dh 64 case:
+             within 2 bf16 ulps, one launch a call, a rerun bit-identical;
+8. timing  - flash_attention at granite's prefill shape beside its bound,
+             the plain version and PyTorch's fused attention (the yardstick,
+             which the port never calls);
+9. serve   - granite-8b at full width (36 layers, random bf16 weights from a
+             seed): 4 prompts of 2048 tokens prefilled and 31 greedy decode
+             steps through ``repro_torch.launch.serve.generate`` with
+             ``impl="flash"``: flash_attention launches once per layer;
+10. check  - the same prefill through ``build_prefill_step`` with the plain
+             attention (``impl="ref"``) agrees within a relative L2
+             tolerance; two flash prefills launch the kernel once per layer
+             each and are bit-identical; decode steps launch it never, and
+             one decode step is counted (aten operations) and traced
+             (device kernels, busy time, idle share); granite-smoke's
+             ``generate`` agrees between the card and the CPU.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +48,7 @@ The line before the last is the kernels' JSON record; the last line is
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -37,6 +58,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_S = 67e12          # H100 SXM f32 peak outside the tensor cores
+BF16_OPS_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
@@ -44,6 +66,27 @@ CHECK = "scale/batch/replicates/R=3"
 # counts within one request at the window edges, latency percentiles to
 # rel 1e-5, message loads to abs 1e-6
 COUNT_SLACK, LAT_REL, MSG_ABS = 1, 1e-5, 1e-6
+# flash_attention against its plain version in bf16: both compute in f32
+# and round once, so 2 bf16 ulps (2**-7 relative each) cover it
+FLASH_ATOL, FLASH_RTOL = 2e-3, 1.6e-2
+# (B, Hq, Hkv, S, Dh, causal): granite-8b's prefill, granite at its
+# max_seq_len, a ragged S, gemma-7b's head dim, and no mask
+FLASH_CASES = (("granite prefill", 4, 32, 8, 2048, 128, True),
+               ("granite max_seq_len", 1, 32, 8, 4096, 128, True),
+               ("ragged S", 2, 32, 8, 1000, 128, True),
+               ("gemma-7b", 1, 16, 16, 1024, 256, True),
+               ("Dh 64 non-causal", 2, 8, 2, 512, 64, False))
+SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 4, 2048, 32
+# the impl="ref" prefill against the flash one, relative L2 of the
+# last-token logits over 36 bf16 layers: measured 0.0181 on an H100 80GB
+# HBM3 at 700 W (PERF.md); the two attentions round their bf16 outputs
+# apart by an ulp here and there and 36 random layers amplify it, so the
+# bound leaves ~2.8x room
+SERVE_REL_L2 = 5e-2
+DECODE_STEPS = 4         # decode steps timed, and traced, after the check
+# granite-smoke card vs CPU: the bf16 logit tolerance of the CPU tests
+# (tests/test_torch_models.py)
+SMOKE_LOGIT_TOL = 0.08
 
 
 def log(*a):
@@ -248,12 +291,308 @@ def cross_check(device):
                          f"tolerance: {worst}")
 
 
+# --------------------------------------------------------------- phase 2
+def build_kernels():
+    """Build both kernels at once (one nvcc each) and print what ptxas says
+    of their registers, shared memory and spills."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    libs = build.build_all(["seg_fanin", "flash_attention"])
+    log(f"build    {', '.join(lib.name for lib in libs)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        entry = lib.name.split("-")[0]
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
+                          r"(?:I(f|13__nv_bfloat16)Li(\d+)E)?", line)
+            if m:
+                kernel, dt, dh = m.groups()
+                entry = kernel if dt is None else \
+                    f"{kernel}<{'f32' if dt == 'f' else 'bf16'}, Dh {dh}>"
+            elif "registers" in line or "smem" in line or "spill" in line:
+                log(f"build    {entry} ptxas: {line.strip()}")
+    log("build    flash_attention_kernel dynamic shared memory per block "
+        "(3 x 64 x (Dh+1) + 64 x 64 f32, as its launcher requests): "
+        + ", ".join(f"Dh {dh}: {(3 * 64 * (dh + 1) + 64 * 64) * 4} B"
+                    for dh in (32, 64, 128, 256)))
+
+
+# --------------------------------------------------------------- phase 7
+def flash_inputs(B, Hq, Hkv, S, Dh, device, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn((B, h, S, Dh), generator=g, device=device
+                        ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv)]
+
+
+def check_flash(device):
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    worst = 0.0
+    for k, (name, B, Hq, Hkv, S, Dh, causal) in enumerate(FLASH_CASES):
+        q, kk, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed=k)
+        before = flash_attention.launches
+        got = flash_attention.flash_attention_bhsd(q, kk, v, causal=causal)
+        launched = flash_attention.launches - before
+        again = flash_attention.flash_attention_bhsd(q, kk, v, causal=causal)
+        want = flash_attention_ref(q, kk, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        ratio = (diff / (FLASH_ATOL + FLASH_RTOL * want.float().abs())
+                 ).max().item()
+        worst = max(worst, err)
+        same = torch.equal(got, again)
+        ok = ratio <= 1.0 and launched == 1 and same and bool(
+            torch.isfinite(got.float()).all())
+        log(f"flash    {name:20s} B={B} Hq={Hq} Hkv={Hkv} S={S} Dh={Dh} "
+            f"causal={causal} launches={launched} rerun_equal={same} "
+            f"max_abs_err={err} worst err/tolerance={ratio:.4f} (tolerance "
+            f"|d| <= {FLASH_ATOL} + {FLASH_RTOL}|ref|)")
+        if not ok:
+            raise SystemExit(f"flash_attention kernel != plain version at "
+                             f"{name}")
+        del q, kk, v, got, again, want, diff
+    return worst
+
+
+# --------------------------------------------------------------- phase 8
+def time_flash(device):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    _, B, Hq, Hkv, S, Dh, _ = FLASH_CASES[0]
+    q, k, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed=0)
+    ms = time_ms(lambda: flash_attention.flash_attention_bhsd(q, k, v), 20,
+                 warmup=3)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), 5, warmup=2)
+    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20, warmup=3)
+    ops = 4 * B * Hq * Dh * S * (S + 1) // 2    # QK^T and PV, causal pairs
+    nbytes = 2 * B * S * Dh * (2 * Hq + 2 * Hkv)   # q, k, v read, o written
+    ops_ms = ops / BF16_OPS_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    log(f"timing   flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} Dh={Dh} "
+        f"bf16 causal: kernel {ms:.6f} ms, plain version {plain_ms:.6f} ms, "
+        f"library (scaled_dot_product_attention) {library_ms:.6f} ms, "
+        f"bound {bound_ms:.6f} ms ({ops} ops at 989 TFLOP/s bf16 = "
+        f"{ops_ms:.6f} ms; {nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms)"
+        f"; kernel at {100 * bound_ms / ms:.2f}% of its bound, "
+        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+# --------------------------------------------------------------- phase 9
+def serve_inputs(device):
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device).manual_seed(0),
+                         device=device)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    log(f"serve    {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n} parameters (bf16 weights, f32 "
+        f"norms) from a seed in {time.perf_counter() - t0:.2f} s")
+    if n != cfg.param_count():
+        raise SystemExit(f"{n} parameters, the config counts "
+                         f"{cfg.param_count()}")
+    prompts = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_PROMPT),
+                            device=device,
+                            generator=torch.Generator(device).manual_seed(1))
+    return cfg, params, prompts
+
+
+def run_serve(device, cfg, params, prompts):
+    import torch
+    from repro_torch.kernels import flash_attention, segfanin
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import make_cache
+    cache = make_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    segfanin.launches = 0
+    out = generate(params, cfg, cache, tokens=prompts, gen=SERVE_GEN,
+                   impl="flash")
+    launches = flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = SERVE_B * (SERVE_GEN - 1) / out.decode_s
+    log(f"serve    prefill {SERVE_B}x{SERVE_PROMPT} tokens: "
+        f"{1e3 * out.prefill_s:.3f} ms; decode {SERVE_GEN - 1} steps: "
+        f"{1e3 * out.decode_s:.3f} ms, {tok_s:.2f} tokens/s; peak "
+        f"memory {peak} bytes ({peak / 2**30:.2f} GiB); flash_attention "
+        f"launches {launches}, seg_fanin launches {segfanin.launches}")
+    log(f"serve    first sequence: {out.tokens[0].tolist()}")
+    if launches != cfg.n_layers:
+        raise SystemExit(f"flash_attention launches {launches}, expected "
+                         f"{cfg.n_layers} (one per layer of the prefill)")
+    if out.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
+            ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
+        raise SystemExit(f"generated tokens out of range: "
+                         f"{out.tokens.shape}")
+    return launches, out.tokens
+
+
+# --------------------------------------------------------------- phase 10
+def check_serve(device, cfg, params, prompts, served):
+    import torch
+    from repro_torch.kernels import flash_attention
+    from repro_torch.models import make_cache
+    from repro_torch.train import build_prefill_step
+
+    def prefill(impl):
+        cache = make_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
+                           device=device)
+        torch.cuda.synchronize()
+        n0 = flash_attention.launches
+        t0 = time.perf_counter()
+        logits, cache = build_prefill_step(cfg, impl=impl)(
+            params, cache, tokens=prompts)
+        torch.cuda.synchronize()
+        return (logits.float(), cache, time.perf_counter() - t0,
+                flash_attention.launches - n0)
+
+    ref, _, ref_s, ref_n = prefill("ref")
+    a, ca, a_s, a_n = prefill("flash")
+    b, cb, b_s, b_n = prefill("flash")
+    same = torch.equal(a, b) and all(torch.equal(ca["kv"][n], cb["kv"][n])
+                                     for n in ("k", "v", "pos"))
+    del cb
+    finite = bool(torch.isfinite(a).all())
+    # generate's first tokens are the greedy ones of this same prefill
+    same_first = torch.equal(a.argmax(-1).to(torch.int32), served[:, 0])
+    rel = ((a - ref).norm() / ref.norm()).item()
+    dmax = (a - ref).abs().max().item()
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * dmax
+    agree = torch.equal(a.argmax(-1)[clear], ref.argmax(-1)[clear])
+    log(f"check    {cfg.name} prefill flash vs ref (attention_chunked): "
+        f"relative L2 {rel} (tolerance {SERVE_REL_L2}), max |d| {dmax}; "
+        f"greedy first tokens {a.argmax(-1).tolist()} vs "
+        f"{ref.argmax(-1).tolist()}, compared {int(clear.sum())} rows with "
+        f"top-2 margin > 2 max|d|: equal={agree}; finite logits={finite}; "
+        f"two flash prefills bit-identical={same} (their first tokens equal "
+        f"generate's: {same_first}); flash launches a prefill {a_n} / {b_n}"
+        f", ref {ref_n}; warm prefill ms: flash {1e3 * a_s:.3f} / "
+        f"{1e3 * b_s:.3f}, ref {1e3 * ref_s:.3f}")
+    if not (rel <= SERVE_REL_L2 and agree and same and same_first and finite
+            and a_n == b_n == cfg.n_layers and ref_n == 0):
+        raise SystemExit("granite-8b flash prefill check failed")
+    trace_decode(device, cfg, params, ca, a.argmax(-1).to(torch.int32))
+
+
+def trace_decode(device, cfg, params, cache, tok):
+    """Decode steps of granite-8b from a flash prefill's cache: none may
+    launch flash_attention; one step's aten operations are counted;
+    DECODE_STEPS steps are timed on the host, then DECODE_STEPS more run
+    under ``torch.profiler`` for the device's kernels, busy time and idle
+    share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.experiments.trace import _busy_us
+    from repro_torch.kernels import flash_attention
+    from repro_torch.train import build_serve_step
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    step = build_serve_step(cfg, impl="flash")
+    state = {"tok": tok, "pos": SERVE_PROMPT}
+
+    def run(n):
+        for _ in range(n):
+            pos = torch.full((SERVE_B,), state["pos"], dtype=torch.int32,
+                             device=device)
+            _, state["tok"] = step(params, cache, state["tok"], pos)
+            state["pos"] += 1
+        torch.cuda.synchronize()
+
+    n0 = flash_attention.launches
+    run(1)                                       # warm
+    counter = CountOps()
+    with counter:
+        run(1)
+    t0 = time.perf_counter()
+    run(DECODE_STEPS)
+    step_ms = 1e3 * (time.perf_counter() - t0) / DECODE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(DECODE_STEPS)
+        traced_ms = 1e3 * (time.perf_counter() - t0) / DECODE_STEPS
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = 1e-3 * _busy_us(kernels) / DECODE_STEPS
+    launched = flash_attention.launches - n0
+    log(f"decode   {cfg.name} B={SERVE_B} at positions {SERVE_PROMPT}..: "
+        f"{counter.n} aten operations a step (counted on one step); "
+        f"{step_ms:.3f} ms a step untraced ({DECODE_STEPS} steps), "
+        f"{traced_ms:.3f} ms traced; device kernels a step "
+        f"{len(kernels) / DECODE_STEPS}, device busy {busy_ms:.3f} ms a "
+        f"step, idle share {1 - busy_ms / traced_ms:.4f} of the traced "
+        f"wall; flash_attention launches in {2 + 2 * DECODE_STEPS} decode "
+        f"steps: {launched}")
+    if launched != 0 or not kernels:
+        raise SystemExit(f"decode: {launched} flash launches (expected 0), "
+                         f"{len(kernels)} device kernels traced")
+
+
+def check_smoke_serve(device):
+    """granite-smoke through generate on the card (the kernel) and on the
+    CPU (the plain version), from the same parameters and prompts; the
+    prefill logits come from the same prefill step on its own."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import init_params, make_cache
+    from repro_torch.train import build_prefill_step
+    cfg = get_smoke_config(SERVE_ARCH)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 64),
+                            generator=torch.Generator().manual_seed(1))
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        p = params.to(dev)
+        n0 = flash_attention.launches
+        logits, _ = build_prefill_step(cfg, impl="flash")(
+            p, make_cache(cfg, 4, 64, device=dev), tokens=prompts.to(dev))
+        n = flash_attention.launches - n0
+        toks = generate(p, cfg, make_cache(cfg, 4, 80, device=dev),
+                        tokens=prompts.to(dev), gen=16, impl="flash").tokens
+        runs[dev.type] = (toks.cpu(), logits.float().cpu(), n)
+    (tg, lg, ng), (tc, lc, nc) = runs["cuda"], runs["cpu"]
+    dmax = (lg - lc).abs().max().item()
+    top2 = lc.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > SMOKE_LOGIT_TOL
+    same_tokens = bool((tg == tc).all(dim=1)[clear].all())
+    log(f"check    {cfg.name} generate card vs cpu: prefill logits max |d| "
+        f"{dmax} (tolerance {SMOKE_LOGIT_TOL}); tokens equal on "
+        f"{int((tg == tc).all(dim=1).sum())} of 4 rows, required on the "
+        f"{int(clear.sum())} rows with a clear first margin: {same_tokens}; "
+        f"flash launches a prefill: card {ng}, cpu {nc}")
+    if not (dmax <= SMOKE_LOGIT_TOL and same_tokens
+            and ng == cfg.n_layers and nc == 0):
+        raise SystemExit("granite-smoke card and cpu disagree")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from repro_torch.kernels import build
     device = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -263,24 +602,30 @@ def main() -> int:
     log(f"device   {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    t0 = time.perf_counter()
-    lib = build.build("seg_fanin")
-    log(f"build    {lib.name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"build    ptxas: {line.strip()}")
-
+    build_kernels()
     err = check_kernel(device)
     timing = time_kernel(device)
     launches = run_main_path(device)
     cross_check(device)
+
+    flash_err = check_flash(device)
+    flash_timing = time_flash(device)
+    cfg, params, prompts = serve_inputs(device)
+    flash_launches, served = run_serve(device, cfg, params, prompts)
+    check_serve(device, cfg, params, prompts, served)
+    check_smoke_serve(device)
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin.cu",
               "replaces": "src/repro/kernels/segfanin.py:46",
               "launches": launches, "max_abs_err": err, **timing,
               "library_ms": None}
-    log(json.dumps({"kernels": [record]}))
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:22",
+             "launches": flash_launches, "max_abs_err": flash_err,
+             **flash_timing}
+    log(json.dumps({"kernels": [record, flash]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,12 @@
-"""PyTorch/CUDA port of the batch simulation backend (``repro``'s JAX
-package stays beside it as the reference).
+"""PyTorch/CUDA port of ``repro`` (whose JAX package stays beside it as
+the reference): the batch simulation backend, and the model zoo's serving
+path for the dense families.
 
 The port mirrors ``repro``'s module names so each counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or anything of ``repro``:
-the few framework-neutral pieces it needs (cost constants, quorum sizes,
-the Pig group partition, the LAN topology) are copied into ``core/``.
+the framework-neutral pieces it needs (cost constants, quorum sizes, the
+Pig group partition, the LAN topology, the model configs) are copied into
+``core/``, ``models/config.py`` and ``configs/``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` explicitly (see ``device.resolve_device``).

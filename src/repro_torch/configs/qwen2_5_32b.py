@@ -1,0 +1,12 @@
+"""qwen2.5-32b [dense]: GQA with QKV bias.
+64L d_model=5120 40H (GQA kv=8) d_ff=27648 vocab=152064 [hf:Qwen/Qwen2.5-0.5B; hf]"""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=27648, vocab=152064, qkv_bias=True, rope_theta=1000000.0,
+)
+
+SMOKE = CONFIG.replace(name="qwen2.5-smoke", n_layers=2, d_model=128,
+                       n_heads=4, n_kv_heads=2, d_ff=256, vocab=512)

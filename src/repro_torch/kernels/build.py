@@ -3,7 +3,8 @@ plain C interface, loaded with ``ctypes``.
 
 Each ``csrc/<name>.cu`` builds at first use into ``_build/`` (listed in
 ``.gitignore``) as ``lib<name>-<digest>.so``, where the digest covers the
-source and the flags, so an edited source never loads a stale library.
+source and that kernel's flags, so an edited source or flag never loads a
+stale library.
 The compiler's register/shared-memory report (``-Xptxas -v``) is kept
 beside it as ``lib<name>-<digest>.log``.  Nothing here runs at import
 time: the CPU tests import every module on a machine without ``nvcc``.
@@ -20,8 +21,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# each kernel's own flags: seg_fanin's bit equality with its plain version
+# needs every multiply and add rounded on its own (no FMA contraction)
+KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": ()}
 
 
 def nvcc() -> str:
@@ -38,29 +41,49 @@ def nvcc() -> str:
     return path
 
 
+def flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+
+
+def build_all(names) -> list:
+    """Compile every ``csrc/<name>.cu`` whose library is not built yet, one
+    ``nvcc`` per source, all started together; return the libraries' paths.
+    Raises with the compiler's output when an ``nvcc`` fails."""
+    outs = [library_path(n) for n in names]
+    jobs = []
+    for name, out in zip(names, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs.append((name, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, cmd, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
+                          f"{' '.join(cmd)}\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    return the library's path.  Raises with the compiler's output when
-    ``nvcc`` fails."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name} ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
-    return out
+    return the library's path."""
+    return build_all([name])[0]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -6,7 +6,20 @@ from __future__ import annotations
 
 import torch
 
+from .flash_attention import flash_attention_bhsd
 from .segfanin import seg_fanin_rows
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Model-layout entry point: q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh) ->
+    (B,S,Hq,Dh) in q's dtype.  Unlike the TPU wrapper it pads neither Dh
+    (to 128, a TPU MXU rule) nor S (the kernel masks the ragged edge)."""
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.transpose(1, 2).contiguous()
+    vt = v.transpose(1, 2).contiguous()
+    out = flash_attention_bhsd(qt, kt, vt, causal=causal)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def seg_fanin(vals: torch.Tensor, coef: torch.Tensor, segid: torch.Tensor,

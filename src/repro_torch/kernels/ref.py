@@ -1,10 +1,31 @@
 """Plain PyTorch versions of the port's kernels: what the CPU runs, and
-what the card's kernels are held against bit for bit."""
+what the card's kernels are held against (bit for bit where the kernel
+keeps the plain version's order of operations, else within a stated
+tolerance)."""
 from __future__ import annotations
 
 import torch
 
 from ..core.segscan import seg_cummax, seg_start_index
+from ..models.layers import attention_ref
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """q: (B,Hq,Sq,Dh); k/v: (B,Hkv,Sk,Dh) -> (B,Hq,Sq,Dh), through the
+    model's ``attention_ref`` (port of ``repro.kernels.ref
+    .flash_attention_ref``).  Non-causal: every query sits at position
+    Sk - 1, so it sees every key."""
+    B, Hq, Sq, Dh = q.shape
+    Sk = k.shape[2]
+    dev = q.device
+    q_pos = torch.arange(Sq, device=dev).expand(B, Sq)
+    if not causal:
+        q_pos = torch.full((B, Sq), Sk - 1, device=dev)
+    k_pos = torch.arange(Sk, device=dev).expand(B, Sk)
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), q_pos, k_pos)
+    return out.transpose(1, 2)
 
 
 def _fanin_plain(vals, coef, segid, kcap, vcoef, md1, c, anchor):

@@ -1,7 +1,7 @@
-"""Tests of the port that need the card: the hand-written CUDA kernel
-against its plain version, the launch wrapper's checks, and a whole run
-through the kernel against one through the plain version.  They import no
-JAX, so they run on a machine with a GPU and no JAX:
+"""Tests of the port that need the card: the hand-written CUDA kernels
+against their plain versions, the launch wrappers' checks, and whole runs
+through the kernels against runs through the plain versions.  They import
+no JAX, so they run on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
@@ -10,9 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import vectorsim
 from repro_torch.core.pig import PigConfig
-from repro_torch.kernels import ops, ref, segfanin
+from repro_torch.kernels import flash_attention, ops, ref, segfanin
+from repro_torch.launch.serve import generate
+from repro_torch.models import init_params, make_cache
+from repro_torch.train import build_prefill_step
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +98,88 @@ def test_whole_run_through_the_kernel_equals_the_plain_run(cuda):
     assert segfanin.launches == info["scan_steps"] > 0
     b = vectorsim.simulate_scenario("pigpaxos", 25, kernel="torch", **kw)
     assert a == b
+
+
+# ------------------------------------------------------------------ flash
+def _qkv(seed, B, Hq, Hkv, S, Dh, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(B, h, S, Dh, generator=g).to(dtype).to(device)
+            for h in (Hq, Hkv, Hkv)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,Hq,Hkv,S,Dh,causal", [
+    (2, 8, 2, 128, 64, True),      # GQA, whole tiles
+    (1, 4, 4, 100, 128, True),     # ragged S
+    (1, 4, 2, 70, 32, False),      # ragged, no mask
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S, Dh,
+                                            causal):
+    """Tolerance: both compute in f32 and round once; bf16 within 2 ulps
+    (|d| <= 2e-3 + 1.6e-2 |ref|), f32 within 1e-5 + 1e-4 |ref| (other
+    summation orders, expf against torch.exp)."""
+    q, k, v = _qkv(S + Dh, B, Hq, Hkv, S, Dh, dtype, cuda)
+    before = flash_attention.launches
+    got = flash_attention.flash_attention_bhsd(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = (2e-3, 1.6e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), err.max()
+    assert torch.equal(got, flash_attention.flash_attention_bhsd(
+        q, k, v, causal=causal))
+
+
+def test_flash_wrapper_checks_its_inputs(cuda):
+    q, k, v = _qkv(0, 1, 4, 2, 64, 64, torch.bfloat16, cuda)
+    f = flash_attention.flash_attention_bhsd
+    with pytest.raises(ValueError, match="on cpu"):
+        f(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="float16"):
+        f(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="k is"):
+        f(q, k.float(), v)
+    with pytest.raises(ValueError, match="head dim 48"):
+        f(q[..., :48].contiguous(), k[..., :48].contiguous(),
+          v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="not contiguous"):
+        f(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="multiple"):
+        f(q[:, :3].contiguous(), k, v)
+    before = flash_attention.launches
+    f(q, k, v)
+    assert flash_attention.launches == before + 1
+
+
+def test_granite_smoke_generate_flash_equals_ref(cuda):
+    """The serving path through the kernel against the same path through
+    the plain attention, on the card: the kernel launches once per layer
+    of the prefill and never in decode; the same last-token logits within
+    the bf16 logit tolerance of the CPU tests (0.08), and the same greedy
+    tokens while the margin allows (bf16 rounding of the attention output
+    may flip a near-tie)."""
+    cfg = get_smoke_config("granite-8b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (4, 64), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+    runs = {}
+    for impl in ("flash", "ref"):
+        n0 = flash_attention.launches
+        logits, _ = build_prefill_step(cfg, impl=impl)(
+            params, make_cache(cfg, 4, 64, device=cuda), tokens=prompts)
+        n1 = flash_attention.launches
+        toks = generate(params, cfg, make_cache(cfg, 4, 80, device=cuda),
+                        tokens=prompts, gen=16, impl=impl).tokens
+        n2 = flash_attention.launches
+        runs[impl] = (toks, logits.float(), n1 - n0, n2 - n1)
+    (tf, lf, pf, gf), (tr, lr, pr, gr) = runs["flash"], runs["ref"]
+    assert (pf, gf) == (cfg.n_layers, cfg.n_layers)   # decode launches 0
+    assert (pr, gr) == (0, 0)
+    assert bool(torch.isfinite(lf).all())
+    assert (lf - lr).abs().max().item() <= 0.08
+    top2 = lr.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.08
+    assert torch.equal(tf[clear, 0], tr[clear, 0])

@@ -21,6 +21,9 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     mods = _modules()
     assert "repro_torch.core.vectorsim" in mods
     assert "repro_torch.experiments.run" in mods
+    for m in ("repro_torch.models.model", "repro_torch.launch.serve",
+              "repro_torch.kernels.flash_attention"):
+        assert m in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"

@@ -177,5 +177,9 @@ def test_build_digest_covers_source_and_flags():
     path = build.library_path("seg_fanin")
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("libseg_fanin-") and path.suffix == ".so"
-    assert "-fmad=false" in build.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    assert "-fmad=false" in build.flags("seg_fanin")
+    assert "-fmad=false" not in build.flags("flash_attention")
+    for name in ("seg_fanin", "flash_attention"):
+        assert "arch=compute_90a,code=sm_90a" in build.flags(name)
+    assert build.library_path("flash_attention").name.startswith(
+        "libflash_attention-")
