@@ -6,9 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build both kernels from ``src/repro_torch/kernels/csrc``, one
-             ``nvcc`` per source, started together; print each kernel's
-             registers and shared memory;
+2. build   - build the three kernels from ``src/repro_torch/kernels/csrc``,
+             one ``nvcc`` per source, started together; print each
+             kernel's registers and shared memory;
 3. kernel  - hold seg_fanin against its plain PyTorch version on the card
              at the batch shapes (F = 24, 256, 1024 slots, rows = cells x 8)
              plus ragged layouts, ties, masked slots and a fully masked
@@ -40,7 +40,25 @@ Phases, in order; any failure exits non-zero:
              each and are bit-identical; decode steps launch it never, and
              one decode step is counted (aten operations) and traced
              (device kernels, busy time, idle share); granite-smoke's
-             ``generate`` agrees between the card and the CPU.
+             ``generate`` agrees between the card and the CPU;
+11. pig    - pig_aggregate against its plain PyTorch version on the card,
+             bit for bit, one launch a call, a rerun bit-identical: the
+             three shapes of ``tests/test_kernels.py``, the relay's
+             aggregate of granite-8b's largest gradient leaf on the
+             multi-pod production mesh (2 x 8,257,536 int8), phase 13's
+             largest leaf, all-zero blocks and -127/+127 extremes;
+12. timing - pig_aggregate at the relay shape and at (4, 268,435,456)
+             beside its bound and the plain version (no PyTorch call
+             computes it);
+13. sync   - a one-rank NCCL world (``repro_torch.launch.mesh``): granite-8b's
+             gradient tree at full width, 12 of 36 layers (bf16, f32 norms,
+             from a seed) through ``collectives.sync_grads`` with
+             ``direct``, ``pig`` and ``pig_q8``: direct and pig return the
+             input bit for bit, pig_q8 stays within half a quantization
+             step (plus bf16 rounding) and out + residual recovers the
+             input; pig_aggregate launches once a leaf; ``final_norm`` and
+             ``layers.attn.wk`` equal the same calls on the CPU through a
+             one-rank gloo group, bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -84,6 +102,23 @@ SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 4, 2048, 32
 # bound leaves ~2.8x room
 SERVE_REL_L2 = 5e-2
 DECODE_STEPS = 4         # decode steps timed, and traced, after the check
+# pig_aggregate: the three shapes of tests/test_kernels.py; the relay's
+# aggregate of granite-8b's mlp.w1 gradient (36 x 4096 x 14336) on the
+# repo's multi-pod production mesh (2 pods x 16 data x 16 model): each
+# relay owns 1/16 of the leaf's 1/16 model slice and sums 2 pods; and the
+# largest leaf of phase 13 (mlp.w1 at 12 layers, one rank)
+PIG_BLOCK = 1024
+RELAY_N = 36 * 4096 * 14336 // (16 * 16)              # 8,257,536
+SYNC_LAYERS = 12                                      # of granite-8b's 36
+PIG_CASES = (("test shape", 2, 2048, 1024, "normal"),
+             ("test shape", 5, 8192, 512, "normal"),
+             ("test shape", 16, 4096, 256, "normal"),
+             ("relay, granite-8b mlp.w1", 2, RELAY_N, PIG_BLOCK, "normal"),
+             ("phase 13 mlp.w1, 1 rank", 1, SYNC_LAYERS * 4096 * 14336,
+              PIG_BLOCK, "normal"),
+             ("all-zero blocks", 3, 1 << 20, PIG_BLOCK, "zeros"),
+             ("-127/+127 extremes", 4, 1 << 20, PIG_BLOCK, "extremes"))
+PIG_TIMED = ((2, RELAY_N), (4, 1 << 28))              # at PIG_BLOCK
 # granite-smoke card vs CPU: the bf16 logit tolerance of the CPU tests
 # (tests/test_torch_models.py)
 SMOKE_LOGIT_TOL = 0.08
@@ -293,11 +328,11 @@ def cross_check(device):
 
 # --------------------------------------------------------------- phase 2
 def build_kernels():
-    """Build both kernels at once (one nvcc each) and print what ptxas says
+    """Build the kernels at once (one nvcc each) and print what ptxas says
     of their registers, shared memory and spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all(["seg_fanin", "flash_attention"])
+    libs = build.build_all(["seg_fanin", "flash_attention", "pig_aggregate"])
     log(f"build    {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -588,6 +623,242 @@ def check_smoke_serve(device):
         raise SystemExit("granite-smoke card and cpu disagree")
 
 
+# --------------------------------------------------------------- phase 11
+def same_bits(a, b):
+    """Bit equality (``torch.equal`` takes -0 for +0)."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+
+
+def pig_inputs(G, N, block, kind, device, seed):
+    """The relay's input: G quantized rows of normal values (every third
+    block all zero for ``zeros``), or -127/+127 shards with random scales
+    (``extremes``)."""
+    import torch
+    from repro_torch.kernels.pig_aggregate import quantize_blockwise
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "extremes":
+        q = torch.randint(0, 2, (G, N), generator=g, device=device,
+                          dtype=torch.int16) * 254 - 127
+        s = torch.rand((G, N // block), generator=g, device=device) * 10
+        return q.to(torch.int8), s + 1e-3
+    q = torch.empty((G, N), dtype=torch.int8, device=device)
+    s = torch.empty((G, N // block), device=device)
+    for r in range(G):
+        x = torch.randn(N, generator=g, device=device)
+        if kind == "zeros":
+            x.view(-1, block)[::3] = 0.0
+        q[r], s[r] = quantize_blockwise(x, block)
+    return q, s
+
+
+def check_pig(device):
+    import torch
+    from repro_torch.kernels import pig_aggregate
+    from repro_torch.kernels.ref import pig_aggregate_ref
+    worst = 0.0
+    for k, (name, G, N, block, kind) in enumerate(PIG_CASES):
+        shards, scales = pig_inputs(G, N, block, kind, device, seed=k)
+        before = pig_aggregate.launches
+        got = pig_aggregate.pig_aggregate(shards, scales, block)
+        launched = pig_aggregate.launches - before
+        again = pig_aggregate.pig_aggregate(shards, scales, block)
+        want = pig_aggregate_ref(shards, scales, block)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        worst = max(worst, err)
+        ok = same_bits(got, want) and same_bits(got, again) \
+            and launched == 1
+        log(f"pig      {name:26s} G={G:2d} N={N:10d} block={block:4d} "
+            f"launches={launched} equal={ok} (tolerance: bit equality) "
+            f"max_abs_err={err}")
+        if not ok:
+            raise SystemExit(f"pig_aggregate kernel != plain version at "
+                             f"{name} ({G}, {N})")
+        del shards, scales, got, again, want
+    return worst
+
+
+# --------------------------------------------------------------- phase 12
+def time_pig(device):
+    """The kernel at the relay shape and at (4, 2**28), its bound (each
+    input read once, the output written once; 2G flops an element) and the
+    plain version.  Inputs are random int8 and scales: the time does not
+    depend on the values."""
+    import torch
+    from repro_torch.kernels import pig_aggregate
+    from repro_torch.kernels.ref import pig_aggregate_ref
+    g = torch.Generator(device=device).manual_seed(0)
+    rows = []
+    for G, N in PIG_TIMED:
+        nb = N // PIG_BLOCK
+        shards = torch.randint(-127, 128, (G, N), generator=g,
+                               device=device, dtype=torch.int8)
+        scales = torch.rand((G, nb), generator=g, device=device)
+        big = G * N > 1 << 28
+        ms = time_ms(lambda: pig_aggregate.pig_aggregate(
+            shards, scales, PIG_BLOCK), 50 if big else 500)
+        plain_ms = time_ms(lambda: pig_aggregate_ref(
+            shards, scales, PIG_BLOCK), 5 if big else 50, warmup=2)
+        nbytes = G * N + 4 * G * nb + 4 * N
+        ops = 2 * G * N
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        ops_ms = ops / F32_OPS_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        log(f"timing   pig_aggregate G={G} N={N} block={PIG_BLOCK}: kernel "
+            f"{ms:.6f} ms, plain version {plain_ms:.6f} ms, bound "
+            f"{bound_ms:.6f} ms ({nbytes} bytes at 3.35 TB/s = "
+            f"{bytes_ms:.6f} ms; {ops} ops at 67 TFLOP/s = {ops_ms:.6f} ms)"
+            f"; kernel at {100 * bound_ms / ms:.2f}% of its bound, "
+            f"{nbytes / ms / 1e6:.2f} GB/s; library call: none (no single "
+            f"PyTorch call takes int8 shards and per-block scales to the "
+            f"f32 sum)")
+        rows.append({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations"})
+        del shards, scales
+    return rows[0]                 # the relay shape: the record's numbers
+
+
+# --------------------------------------------------------------- phase 13
+SPOT = ("final_norm", "layers/attn/wk")
+
+
+def leaf(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def q8_error(x, out, res, block):
+    """(worst |out - x| / (step/2 + 2u(|x| + step)), worst |out + res - x|
+    / (2u(|x| + step))) over one leaf, with step its block's quantization
+    step and u the unit roundoff of its dtype: both at most 1 (half a step
+    of quantization, and the output's own rounding with a factor 2 to
+    spare)."""
+    import torch
+    u = 2.0 ** -8 if x.dtype == torch.bfloat16 else 2.0 ** -24
+    xs, os_, rs = (t.reshape(-1, block) for t in (x, out, res))
+    worst = [0.0, 0.0]
+    for i in range(0, xs.shape[0], 1 << 16):
+        xf, of, rf = (t[i:i + (1 << 16)].double() for t in (xs, os_, rs))
+        step = xf.abs().amax(1, keepdim=True).clamp_min(1e-12) / 127
+        worst[0] = max(worst[0], ((of - xf).abs() / (
+            step / 2 + 2 * u * (xf.abs() + step))).max().item())
+        worst[1] = max(worst[1], ((of + rf - xf).abs() / (
+            2 * u * (xf.abs() + step) + 1e-300)).max().item())
+    return worst
+
+
+def run_sync(device):
+    """Phase 13: returns pig_aggregate's launches on the path."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.collectives import sync_grads
+    from repro_torch.collectives.schedules import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import pig_aggregate
+    from repro_torch.launch import mesh
+    from repro_torch.models import param_tree_shapes
+    cfg = get_config(SERVE_ARCH).replace(n_layers=SYNC_LAYERS)
+    g = torch.Generator(device=device).manual_seed(3)
+    grads = tree_map(lambda sd: torch.randn(sd[0], generator=g,
+                                             device=device, dtype=sd[1]),
+                      param_tree_shapes(cfg))
+    n = sum(t.numel() for t in _flat_leaves(grads))
+    nbytes = sum(t.numel() * t.element_size() for t in _flat_leaves(grads))
+    log(f"sync     {cfg.name} gradient tree at full width, {SYNC_LAYERS} of "
+        f"36 layers: 12 leaves, {n} elements, {nbytes} bytes (bf16, f32 "
+        f"norms)")
+    with tempfile.TemporaryDirectory() as d:
+        mesh.init(0, 1, dist.FileStore(os.path.join(d, "store"), 1),
+                  device=device)
+        try:
+            card = mesh.make_mesh(1, 1)
+            host = mesh.make_mesh(1, 1, backend="gloo")
+            for grp in (card.world, card.group, card.pod):   # NCCL set-up
+                dist.all_reduce(torch.ones(1, device=device), group=grp)
+            torch.cuda.synchronize()
+            spot = {p: leaf(grads, p).cpu() for p in SPOT}
+            torch.cuda.reset_peak_memory_stats()
+            pig_aggregate.launches = 0
+            outs = {}
+            for schedule in ("direct", "pig", "pig_q8"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, res = sync_grads(grads, card, schedule, block=PIG_BLOCK)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launched = pig_aggregate.launches
+                outs[schedule] = {p: (leaf(out, p).cpu(), None if res is None
+                                      else leaf(res, p).cpu()) for p in SPOT}
+                if schedule == "pig_q8":
+                    worst = [max(w) for w in zip(*(
+                        q8_error(x, o, r, PIG_BLOCK) for x, o, r in zip(
+                            _flat_leaves(grads), _flat_leaves(out),
+                            _flat_leaves(res))))]
+                    ok = worst[0] <= 1 and worst[1] <= 1 and launched == 12
+                    detail = (f"|out - x| <= step/2 + 2u(|x| + step): worst "
+                              f"ratio {worst[0]:.6f}; |out + residual - x| "
+                              f"<= 2u(|x| + step): worst ratio "
+                              f"{worst[1]:.6f}")
+                else:
+                    ok = all(same_bits(a, b) for a, b in zip(
+                        _flat_leaves(out), _flat_leaves(grads)))
+                    detail = f"output == input bit for bit: {ok}"
+                log(f"sync     {schedule:6s} wall {1e3 * wall:.3f} ms "
+                    f"({nbytes / wall / 1e9:.2f} GB/s of gradients); "
+                    f"pig_aggregate launches so far {launched}; {detail}")
+                if not ok:
+                    raise SystemExit(f"sync_grads({schedule!r}) check "
+                                     f"failed")
+                del out, res
+            launches = pig_aggregate.launches
+            peak = torch.cuda.max_memory_allocated()
+            log(f"sync     peak device memory {peak} bytes "
+                f"({peak / 2**30:.2f} GiB); pig_aggregate launches "
+                f"{launches} (12 leaves x one pig_q8 call)")
+            # the same calls on the CPU, through a one-rank gloo group
+            cpu = _nest_spot(spot)
+            for schedule, card_out in outs.items():
+                out, res = sync_grads(cpu, host, schedule, block=PIG_BLOCK)
+                same = all(same_bits(card_out[p][0], leaf(out, p)) and (
+                    res is None or same_bits(card_out[p][1], leaf(res, p)))
+                           for p in SPOT)
+                log(f"check    sync_grads({schedule!r}) card (NCCL) vs cpu "
+                    f"(gloo) on {', '.join(SPOT)}: bit-identical={same}")
+                if not same:
+                    raise SystemExit(f"sync_grads({schedule!r}): card and "
+                                     f"cpu differ")
+        finally:
+            dist.destroy_process_group()
+    del grads
+    return launches
+
+
+def _flat_leaves(tree):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _flat_leaves(tree[k])
+        else:
+            yield tree[k]
+
+
+def _nest_spot(spot):
+    tree = {}
+    for path, t in spot.items():
+        *parents, name = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[name] = t
+    return tree
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -614,6 +885,12 @@ def main() -> int:
     flash_launches, served = run_serve(device, cfg, params, prompts)
     check_serve(device, cfg, params, prompts, served)
     check_smoke_serve(device)
+    del cfg, params, prompts, served
+    torch.cuda.empty_cache()
+
+    pig_err = check_pig(device)
+    pig_timing = time_pig(device)
+    pig_launches = run_sync(device)
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin.cu",
@@ -625,7 +902,12 @@ def main() -> int:
              "replaces": "src/repro/kernels/flash_attention.py:22",
              "launches": flash_launches, "max_abs_err": flash_err,
              **flash_timing}
-    log(json.dumps({"kernels": [record, flash]}))
+    pig = {"name": "pig_aggregate", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/pig_aggregate.cu",
+           "replaces": "src/repro/kernels/pig_aggregate.py:20",
+           "launches": pig_launches, "max_abs_err": pig_err, **pig_timing,
+           "library_ms": None}
+    log(json.dumps({"kernels": [record, flash, pig]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

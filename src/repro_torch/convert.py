@@ -10,6 +10,8 @@ model this stacked dict is what weights are to a model.
 ``params_from_jax`` and ``cache_from_jax`` take the JAX package's
 ``init_params`` pytree and ``make_cache`` dict as numpy arrays (stacked L
 axis) and give the port's ``DenseModel`` and cache, bit for bit.
+``tree_from_jax`` carries any nested dict of arrays (gradients, residuals)
+across as the same nested dict of tensors.
 """
 from __future__ import annotations
 
@@ -49,6 +51,14 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(
             device)
     return torch.from_numpy(a).to(device)
+
+
+def tree_from_jax(tree: Mapping, device) -> Dict[str, object]:
+    """A JAX pytree of nested dicts of arrays (e.g. ``init_params``-shaped
+    gradients, with the layer axis stacked) -> the same nested dict of
+    tensors on ``device``, each leaf bit for bit in its own dtype."""
+    return {k: tree_from_jax(v, device) if isinstance(v, Mapping)
+            else tensor_from_numpy(v, device) for k, v in tree.items()}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:

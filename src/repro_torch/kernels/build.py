@@ -22,9 +22,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# each kernel's own flags: seg_fanin's bit equality with its plain version
-# needs every multiply and add rounded on its own (no FMA contraction)
-KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": ()}
+# each kernel's own flags: the bit equality of seg_fanin and pig_aggregate
+# with their plain versions needs every multiply and add rounded on its own
+# (no FMA contraction)
+KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": (),
+                "pig_aggregate": ("-fmad=false",)}
 
 
 def nvcc() -> str:

@@ -7,6 +7,8 @@ from __future__ import annotations
 import torch
 
 from .flash_attention import flash_attention_bhsd
+from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
+from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
 from .segfanin import seg_fanin_rows
 
 
@@ -20,6 +22,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vt = v.transpose(1, 2).contiguous()
     out = flash_attention_bhsd(qt, kt, vt, causal=causal)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def pig_aggregate(shards: torch.Tensor, scales: torch.Tensor,
+                  block: int = 1024) -> torch.Tensor:
+    """shards (G, N) int8 + scales (G, N//block) f32 -> (N,) f32 sum."""
+    return _pig_aggregate_kernel(shards, scales, block=block)
 
 
 def seg_fanin(vals: torch.Tensor, coef: torch.Tensor, segid: torch.Tensor,

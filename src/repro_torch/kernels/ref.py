@@ -95,3 +95,20 @@ def seg_fanin_rows_ref(vals, coef, segid, kcap, scal, rows_per_cell: int):
                        segid, kcap, s[..., 0:1], s[..., 1:2], s[..., 2:3],
                        s[..., 3:4])
     return out.reshape(vals.shape)
+
+
+def pig_aggregate_ref(shards: torch.Tensor, scales: torch.Tensor,
+                      block: int = 1024) -> torch.Tensor:
+    """The relay's dequantize-and-sum, the plain version (port of
+    ``repro.kernels.ref.pig_aggregate_ref``): shards (G, N) int8, scales
+    (G, N // block) f32 -> (N,) f32 = sum_g shards[g] * scales[g, n // block].
+
+    The sum runs over g in ascending order from 0.0, each product rounded
+    on its own, which fixes the order of operations so that the card's
+    kernel can be held to it bit for bit."""
+    G, N = shards.shape
+    acc = torch.zeros(N // block, block, dtype=torch.float32,
+                      device=shards.device)
+    for g in range(G):
+        acc = acc + shards[g].view(-1, block).float() * scales[g, :, None]
+    return acc.view(N)

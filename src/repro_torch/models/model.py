@@ -104,6 +104,27 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     return model
 
 
+def param_tree_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
+    """The layout of the JAX ``init_params`` tree for a dense-family config:
+    nested dicts of (shape, dtype), each ``layers`` leaf with its leading L
+    axis stacked.  It is the layout ``convert.params_from_jax`` reads and
+    the layout of the gradient tree that ``collectives.sync_grads``
+    synchronizes."""
+    tree: dict = {}
+    one = DenseModel(cfg.replace(n_layers=1), dtype, device="meta")
+    for name, p in one.named_parameters():
+        shape = tuple(p.shape)
+        if name.startswith("layers.0."):
+            name = "layers." + name[len("layers.0."):]
+            shape = (cfg.n_layers,) + shape
+        *parents, leaf = name.split(".")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = (shape, p.dtype)
+    return tree
+
+
 # ================================================================== blocks
 def _dense_block(lp: DenseBlock, x, cfg: ModelConfig, positions, cache, impl):
     h, nc = attention_block(lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps),

@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the hand-written CUDA kernels
 against their plain versions, the launch wrappers' checks, and whole runs
-through the kernels against runs through the plain versions.  They import
+through the kernels against runs through the plain versions (and, for the
+Pig collective schedules, a one-rank NCCL world against a gloo one on the
+CPU).  They import
 no JAX, so they run on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -13,9 +15,10 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import vectorsim
 from repro_torch.core.pig import PigConfig
-from repro_torch.kernels import flash_attention, ops, ref, segfanin
+from repro_torch.kernels import flash_attention, ops, pig_aggregate, ref, \
+    segfanin
 from repro_torch.launch.serve import generate
-from repro_torch.models import init_params, make_cache
+from repro_torch.models import init_params, make_cache, param_tree_shapes
 from repro_torch.train import build_prefill_step
 
 pytestmark = pytest.mark.cuda
@@ -183,3 +186,116 @@ def test_granite_smoke_generate_flash_equals_ref(cuda):
     top2 = lr.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 0.08
     assert torch.equal(tf[clear, 0], tr[clear, 0])
+
+
+# ------------------------------------------------------------ pig aggregate
+def _same_bits(a, b):
+    """Bit equality (``torch.equal`` takes -0 for +0)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32}
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+
+
+def _shards(seed, G, N, block, device, extremes=False):
+    """G quantized rows (the relay's input) with one all-zero block, or
+    random -127/+127 shards with random scales."""
+    rng = np.random.default_rng(seed)
+    if extremes:
+        q = rng.choice(np.array([-127, 127], np.int8), (G, N))
+        s = rng.uniform(1e-3, 10.0, (G, N // block)).astype(np.float32)
+        return (torch.from_numpy(q).to(device),
+                torch.from_numpy(s).to(device))
+    x = torch.from_numpy(rng.standard_normal((G, N)).astype(np.float32))
+    x[0, -block:] = 0.0
+    q, s = zip(*(pig_aggregate.quantize_blockwise(r.to(device), block)
+                 for r in x))
+    return torch.stack(q), torch.stack(s)
+
+
+def test_quantize_blockwise_card_equals_cpu(cuda):
+    """The quantizer is plain PyTorch on both devices and must agree bit for
+    bit (ties to even, the scale a true division by 127)."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        1 << 16).astype(np.float32))
+    x[:1024] = 0.0
+    qc, sc = pig_aggregate.quantize_blockwise(x, 1024)
+    qg, sg = pig_aggregate.quantize_blockwise(x.to(cuda), 1024)
+    assert _same_bits(qg.cpu(), qc) and _same_bits(sg.cpu(), sc)
+
+
+@pytest.mark.parametrize("G,N,block,extremes", [
+    (2, 2048, 1024, False), (5, 8192, 512, False), (16, 4096, 256, False),
+    (3, 4096, 16, False), (4, 8192, 1024, True)])
+def test_pig_aggregate_kernel_matches_plain_version(cuda, G, N, block,
+                                                    extremes):
+    shards, scales = _shards(G * N, G, N, block, cuda, extremes)
+    before = pig_aggregate.launches
+    got = ops.pig_aggregate(shards, scales, block=block)
+    assert pig_aggregate.launches == before + 1
+    want = ref.pig_aggregate_ref(shards, scales, block=block)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    assert _same_bits(got, ops.pig_aggregate(shards, scales, block=block))
+
+
+def test_pig_aggregate_wrapper_checks_its_inputs(cuda):
+    shards = torch.zeros(2, 2048, dtype=torch.int8, device=cuda)
+    scales = torch.ones(2, 2, device=cuda)
+    f = pig_aggregate.pig_aggregate
+    with pytest.raises(ValueError, match="scales on cpu"):
+        f(shards, scales.cpu(), 1024)
+    with pytest.raises(TypeError, match="int8"):
+        f(shards.float(), scales, 1024)
+    with pytest.raises(ValueError, match="not a multiple of 16"):
+        f(torch.zeros(2, 2040, dtype=torch.int8, device=cuda),
+          torch.ones(2, 85, device=cuda), 24)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        buf = torch.zeros(2 * 2048 + 1, dtype=torch.int8, device=cuda)
+        f(buf[1:].view(2, 2048), scales, 1024)
+    with pytest.raises(ValueError, match="not contiguous"):
+        f(torch.zeros(2048, 2, dtype=torch.int8, device=cuda).t(), scales,
+          1024)
+    before = pig_aggregate.launches
+    assert bool((f(shards, scales, 1024) == 0).all())
+    assert pig_aggregate.launches == before + 1
+
+
+def test_one_rank_nccl_sync_grads_equals_gloo_on_the_cpu(cuda, tmp_path):
+    """granite-smoke's gradient tree (the JAX layout, bf16 with f32 norms)
+    through ``sync_grads`` in a one-rank NCCL world and through a one-rank
+    gloo group on the CPU: two pig_q8 steps of error feedback bit for bit,
+    one kernel launch a leaf on the card; direct and pig return the input
+    (one term a sum)."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import sync_grads
+    from repro_torch.collectives.schedules import tree_map
+    from repro_torch.launch import mesh
+    gen = torch.Generator().manual_seed(0)
+    grads = tree_map(lambda sd: (0.05 * torch.randn(sd[0], generator=gen)
+                                  ).to(sd[1]),
+                      param_tree_shapes(get_smoke_config("granite-8b")))
+    mesh.init(0, 1, dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        meshes = {"cuda": mesh.make_mesh(1, 1),
+                  "cpu": mesh.make_mesh(1, 1, backend="gloo")}
+        runs = {}
+        for dev, m in meshes.items():
+            g = tree_map(lambda t: t.to(dev), grads)
+            before = pig_aggregate.launches
+            s1, r1 = sync_grads(g, m, "pig_q8", block=64)
+            s2, r2 = sync_grads(g, m, "pig_q8", residuals=r1, block=64)
+            runs[dev] = (s1, r1, s2, r2, pig_aggregate.launches - before)
+            for schedule in ("direct", "pig"):
+                out, _ = sync_grads(g, m, schedule)
+                tree_map(lambda a, b: _check(_same_bits(a, b)), out, g)
+        torch.cuda.synchronize()
+        assert runs["cuda"][4] == 2 * 12 and runs["cpu"][4] == 0
+        for a, b in zip(runs["cuda"][:4], runs["cpu"][:4]):
+            tree_map(lambda x, y: _check(_same_bits(x.cpu(), y)), a, b)
+    finally:
+        dist.destroy_process_group()
+
+
+def _check(ok):
+    assert ok

@@ -22,7 +22,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert "repro_torch.core.vectorsim" in mods
     assert "repro_torch.experiments.run" in mods
     for m in ("repro_torch.models.model", "repro_torch.launch.serve",
-              "repro_torch.kernels.flash_attention"):
+              "repro_torch.kernels.flash_attention",
+              "repro_torch.kernels.pig_aggregate",
+              "repro_torch.collectives.schedules",
+              "repro_torch.launch.mesh"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
