@@ -9,7 +9,8 @@ model this stacked dict is what weights are to a model.
 
 ``params_from_jax`` and ``cache_from_jax`` take the JAX package's
 ``init_params`` pytree and ``make_cache`` dict as numpy arrays (stacked L
-axis) and give the port's ``DenseModel`` and cache, bit for bit.
+axis) and give the port's model (``DenseModel``, or ``RWKVModel`` for the
+``rwkv`` family) and cache, bit for bit.
 ``tree_from_jax`` carries any nested dict of arrays (gradients, residuals)
 across as the same nested dict of tensors.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .models.model import DenseModel
+from .models.model import model_class
 
 
 def cells_from_numpy(batch: Dict[str, np.ndarray], device
@@ -72,8 +73,9 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
 
 
 def params_from_jax(tree: Mapping, cfg, device):
-    """The JAX ``init_params`` pytree of a dense-family model -> the port's
-    ``DenseModel`` on ``device``, each leaf keeping its dtype.  ``layers``
+    """The JAX ``init_params`` pytree of a ported model -> the port's model
+    for ``cfg.family`` (``models.model_class``) on ``device``, each leaf
+    keeping its dtype.  ``layers``
     leaves carry a leading L axis, which becomes ``layers.<l>.``; every
     leaf must map to exactly one parameter and back (a strict load)."""
     state = {}
@@ -88,15 +90,16 @@ def params_from_jax(tree: Mapping, cfg, device):
                 state[f"layers.{i}.{sub}"] = tensor_from_numpy(a[i], device)
         else:
             state[name] = tensor_from_numpy(a, device)
-    model = DenseModel(cfg, device="meta")
+    model = model_class(cfg)(cfg, device="meta")
     # strict: every leaf maps to one parameter and back, shapes equal
     model.load_state_dict(state, strict=True, assign=True)
     return model
 
 
 def cache_from_jax(cache: Mapping, device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The JAX ``make_cache`` dict ({'kv': {'k', 'v', 'pos'}}) -> the
-    port's, bit for bit."""
+    """The JAX ``make_cache`` dict ({'kv': {'k', 'v', 'pos'}} or
+    {'rwkv': {'shift_t', 'shift_c', 'state'}}) -> the port's, bit for
+    bit."""
     return {group: {name: tensor_from_numpy(a, device)
                     for name, a in arrays.items()}
             for group, arrays in cache.items()}

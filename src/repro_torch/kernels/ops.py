@@ -4,8 +4,11 @@ A CPU tensor goes to the plain version in ``ref``; a CUDA tensor goes to
 the hand-written kernel.  There is no fallback between the two."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from . import ssm_scan as _ssm_scan
 from .flash_attention import flash_attention_bhsd
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
@@ -22,6 +25,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vt = v.transpose(1, 2).contiguous()
     out = flash_attention_bhsd(qt, kt, vt, causal=causal)
     return out.transpose(1, 2).to(q.dtype)
+
+
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, u: Optional[torch.Tensor] = None,
+             chunk: int = 64, s0: Optional[torch.Tensor] = None,
+             return_state: bool = False):
+    """Model-layout entry point with ``repro.kernels.ops.ssm_scan``'s
+    signature plus a state: q/k/log_a (B,T,H,Dk), v (B,T,H,Dv), u (H,Dk) or
+    None, s0 (B,H,Dk,Dv) or None.  Returns y (B,T,H,Dv) in v's dtype and,
+    with ``return_state``, the final f32 state.
+
+    A CPU tensor runs ``ref.ssm_scan_ref``, a CUDA tensor the kernel.
+    Unlike the TPU wrapper it neither folds (B, H) into rows (the kernel
+    reads the model layout by strides) nor pads T (rows past T are a decay
+    of 1 and no kv).  log_a, u and s0 go to f32, and the inputs are made
+    contiguous (a no-op for the model's own tensors).
+
+    Overflow: the kernel folds the decay into q e^{A} and k e^{-A} inside a
+    chunk, so ``chunk * max|log_a|`` must stay well under log(f32 max) ~ 88.
+    RWKV6 clamps log_a to [-2.3, -1e-4] and passes ``chunk=16`` (e^36.8 at
+    most); at the default chunk of 64 its decays overflow, here and in the
+    TPU kernel."""
+    f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
+    return _ssm_scan.ssm_scan(q.contiguous(), k.contiguous(), v.contiguous(),
+                              f32(log_a), u=f32(u), chunk=chunk, s0=f32(s0),
+                              return_state=return_state)
 
 
 def pig_aggregate(shards: torch.Tensor, scales: torch.Tensor,

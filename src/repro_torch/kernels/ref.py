@@ -6,8 +6,11 @@ from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
 from ..core.segscan import seg_cummax, seg_start_index
 from ..models.layers import attention_ref
+from ..models.ssm import chunked_linear_scan
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -26,6 +29,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), q_pos, k_pos)
     return out.transpose(1, 2)
+
+
+def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, u: Optional[torch.Tensor] = None,
+                 chunk: int = 64, s0: Optional[torch.Tensor] = None,
+                 return_state: bool = False):
+    """The chunked linear recurrence in the model layout, the plain version
+    of the ``ssm_scan`` kernel: q/k/log_a (B,T,H,Dk), v (B,T,H,Dv), u (H,Dk)
+    bonus or None, s0 (B,H,Dk,Dv) or None.  Returns y (B,T,H,Dv) in v's
+    dtype and, with ``return_state``, the final f32 state.
+
+    Delegates to the port's ``chunked_linear_scan`` in its per-channel form
+    (as ``repro.kernels.ref.ssm_scan_ref`` does).  T is padded to a
+    multiple of ``chunk`` with zeros: a log_a of 0 is a decay of 1 and a kv
+    of 0 adds nothing, so the padded steps leave the state unchanged."""
+    T = q.shape[1]
+    pad = (-T) % chunk
+    if pad:
+        q, k, v, log_a = (torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+                          for a in (q, k, v, log_a))
+    out = chunked_linear_scan(q, k, v, log_a, chunk, bonus=u, s0=s0,
+                              return_state=return_state)
+    if not return_state:
+        return out[:, :T]
+    y, state = out
+    return y[:, :T], state
+
+
+def ssm_scan_bhtd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_a: torch.Tensor, u: Optional[torch.Tensor] = None,
+                      chunk: int = 64) -> torch.Tensor:
+    """``repro.kernels.ssm_scan.ssm_scan_bhtd``'s signature: q/k/log_a
+    (BH, T, Dk), v (BH, T, Dv), u (BH, Dk) or None; returns (BH, T, Dv).
+    The BH rows are independent heads of one batch row, so each row's u is
+    its head's bonus."""
+    heads = lambda a: a.transpose(0, 1)[None]      # (BH,T,D) -> (1,T,BH,D)
+    y = ssm_scan_ref(heads(q), heads(k), heads(v), heads(log_a), u=u,
+                     chunk=chunk)
+    return y[0].transpose(0, 1)
 
 
 def _fanin_plain(vals, coef, segid, kcap, vcoef, md1, c, anchor):

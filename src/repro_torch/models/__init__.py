@@ -1,3 +1,4 @@
 from .config import ModelConfig  # noqa: F401
-from .model import (DenseModel, decode_step, forward, forward_hidden,  # noqa: F401
-                    init_params, make_cache, param_tree_shapes, prefill)
+from .model import (DenseModel, RWKVModel, decode_step, forward,  # noqa: F401
+                    forward_hidden, init_params, make_cache, model_class,
+                    param_tree_shapes, prefill)

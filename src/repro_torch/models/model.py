@@ -1,14 +1,15 @@
 """Top-level model zoo API for the dense families (``dense``, ``vlm``,
-``audio``): init_params / forward / prefill / decode_step.  The port of
-``repro.models.model``.
+``audio``) and ``rwkv``: init_params / forward / prefill / decode_step.
+The port of ``repro.models.model``.
 
 Parameters live in ``nn.Module``s whose names mirror the JAX dict's keys
 (``embed``, ``final_norm``, ``head``, ``layers.<l>.attn.wq``,
-``layers.<l>.ln1``, ``layers.<l>.mlp.w1``, ...), so ``convert`` maps one to
-the other by name.  The JAX package stacks per-layer parameters on a
-leading L axis and runs ``lax.scan`` over it; here the L axis is a
-``ModuleList`` and the scan a loop.  The KV cache keeps the stacked
-(L, ...) layout, and each layer updates its slice in place.
+``layers.<l>.ln1``, ``layers.<l>.mlp.w1``, ``layers.<l>.time.wr``, ...),
+so ``convert`` maps one to the other by name.  The JAX package stacks
+per-layer parameters on a leading L axis and runs ``lax.scan`` over it;
+here the L axis is a ``ModuleList`` and the scan a loop.  The caches keep
+the stacked (L, ...) layout (``{"kv": ...}`` or ``{"rwkv": ...}``), and
+each layer updates its slice in place.
 """
 from __future__ import annotations
 
@@ -23,21 +24,21 @@ from .config import ModelConfig
 from .layers import (Attention, GatedMLP, attention_block, empty_kv_cache,
                      gated_mlp, generator_device, init_attention, init_mlp,
                      rmsnorm, target_device)
+from .rwkv import RWKVBlock, empty_rwkv_cache, init_rwkv_block, rwkv_block
 
 DENSE_FAMILIES = ("dense", "vlm", "audio")
 # the ROADMAP item (queue 1) that will port each other family
 NOT_PORTED = {"moe": "item 11b (MoE serving)",
-              "ssm": "item 11c (SSM/RWKV/hybrid serving)",
-              "rwkv": "item 11c (SSM/RWKV/hybrid serving)",
-              "hybrid": "item 11c (SSM/RWKV/hybrid serving)"}
+              "ssm": "item 11c (Mamba2 ssm / zamba2 hybrid serving)",
+              "hybrid": "item 11c (Mamba2 ssm / zamba2 hybrid serving)"}
 
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
             f"queue 1, {NOT_PORTED[cfg.family]})")
-    if cfg.family not in DENSE_FAMILIES:
+    if cfg.family not in DENSE_FAMILIES + ("rwkv",):
         raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -54,14 +55,18 @@ class DenseBlock(nn.Module):
 
 
 class DenseModel(nn.Module):
-    """Embedding, the stack of ``DenseBlock``s, the final norm and (unless
-    tied to the embedding) the head.  Norm weights are f32, the rest in
-    ``dtype``, as in the JAX package.  ``device=None`` is the CUDA
-    device."""
+    """Embedding, the stack of ``DenseBlock``s (``RWKVBlock``s for the
+    ``rwkv`` family: ``RWKVModel``), the final norm and (unless tied to the
+    embedding) the head.  Norm weights are f32, the rest in ``dtype``, as
+    in the JAX package.  ``device=None`` is the CUDA device."""
+
+    block = DenseBlock
 
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
-        _require_dense(cfg)
+        if model_class(cfg) is not type(self):
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} needs "
+                             f"{model_class(cfg).__name__}")
         D, V = cfg.d_model, cfg.vocab
         device = target_device(device)
         self.embed = nn.Parameter(torch.empty((V, D), dtype=dtype,
@@ -70,8 +75,20 @@ class DenseModel(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Parameter(torch.empty((D, V), dtype=dtype,
                                                  device=device))
-        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device)
+        self.layers = nn.ModuleList(self.block(cfg, dtype, device)
                                     for _ in range(cfg.n_layers))
+
+
+class RWKVModel(DenseModel):
+    """The ``rwkv`` family: the same embedding, final norm and head around
+    a stack of ``RWKVBlock``s."""
+
+    block = RWKVBlock
+
+
+def model_class(cfg: ModelConfig) -> type:
+    _require_ported(cfg)
+    return RWKVModel if cfg.family == "rwkv" else DenseModel
 
 
 # ================================================================== init
@@ -82,10 +99,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     from ``gen``, which must live there.  The bits differ from
     ``jax.random``'s; tests carry JAX's parameters across with
     ``convert.params_from_jax`` instead."""
-    _require_dense(cfg)
     dev = generator_device(gen, device)
     D, V = cfg.d_model, cfg.vocab
-    model = DenseModel(cfg, dtype, device="meta")
+    model = model_class(cfg)(cfg, dtype, device="meta")
     with torch.no_grad():
         model.embed = nn.Parameter(
             (torch.randn((V, D), generator=gen, device=dev) * 0.02
@@ -96,6 +112,9 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
                 (torch.randn((D, V), generator=gen, device=dev)
                  / math.sqrt(D)).to(dtype))
         for i in range(cfg.n_layers):
+            if cfg.family == "rwkv":
+                model.layers[i] = init_rwkv_block(gen, cfg, dtype, dev)
+                continue
             blk = model.layers[i]
             blk.attn = init_attention(gen, cfg, dtype, dev)
             blk.ln1 = nn.Parameter(torch.zeros(D, device=dev))
@@ -105,13 +124,13 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
 
 def param_tree_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
-    """The layout of the JAX ``init_params`` tree for a dense-family config:
+    """The layout of the JAX ``init_params`` tree for a ported config:
     nested dicts of (shape, dtype), each ``layers`` leaf with its leading L
     axis stacked.  It is the layout ``convert.params_from_jax`` reads and
     the layout of the gradient tree that ``collectives.sync_grads``
     synchronizes."""
     tree: dict = {}
-    one = DenseModel(cfg.replace(n_layers=1), dtype, device="meta")
+    one = model_class(cfg)(cfg.replace(n_layers=1), dtype, device="meta")
     for name, p in one.named_parameters():
         shape = tuple(p.shape)
         if name.startswith("layers.0."):
@@ -134,6 +153,12 @@ def _dense_block(lp: DenseBlock, x, cfg: ModelConfig, positions, cache, impl):
     return x + h, nc
 
 
+def _block(lp, x, cfg: ModelConfig, positions, cache, impl):
+    if cfg.family == "rwkv":
+        return rwkv_block(lp, x, cfg, cache=cache, impl=impl)
+    return _dense_block(lp, x, cfg, positions, cache, impl)
+
+
 def _embed(params: DenseModel, tokens=None, embeds=None):
     if embeds is not None:
         return embeds
@@ -151,7 +176,7 @@ def forward_hidden(params: DenseModel, cfg: ModelConfig, tokens=None,
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     for lp in params.layers:
-        x, _ = _dense_block(lp, x, cfg, positions, None, impl)
+        x, _ = _block(lp, x, cfg, positions, None, impl)
     return rmsnorm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -171,8 +196,12 @@ def forward(params, cfg, tokens=None, embeds=None, positions=None,
 # ================================================================== serving
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
-    """An empty KV cache on ``device`` (``None``: the CUDA device)."""
-    _require_dense(cfg)
+    """An empty cache on ``device`` (``None``: the CUDA device): the KV
+    cache of a dense family, the token shifts and states of ``rwkv``."""
+    _require_ported(cfg)
+    if cfg.family == "rwkv":
+        return {"rwkv": empty_rwkv_cache(cfg, batch, dtype=dtype,
+                                         device=device)}
     return {"kv": empty_kv_cache(cfg, batch, max_len, dtype=dtype,
                                  device=device)}
 
@@ -180,10 +209,10 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _run_cached(params: DenseModel, cfg, x, positions, cache, impl):
     """The cached-mode layer stack (prefill T>=1 and decode T==1); each
     layer writes its slice of the stacked cache in place."""
-    kv = cache["kv"]
+    (stacked,) = cache.values()
     for i, lp in enumerate(params.layers):
-        layer_cache = {name: t[i] for name, t in kv.items()}
-        x, _ = _dense_block(lp, x, cfg, positions, layer_cache, impl)
+        layer_cache = {name: t[i] for name, t in stacked.items()}
+        x, _ = _block(lp, x, cfg, positions, layer_cache, impl)
     return x, cache
 
 

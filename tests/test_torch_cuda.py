@@ -16,7 +16,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core import vectorsim
 from repro_torch.core.pig import PigConfig
 from repro_torch.kernels import flash_attention, ops, pig_aggregate, ref, \
-    segfanin
+    segfanin, ssm_scan
 from repro_torch.launch.serve import generate
 from repro_torch.models import init_params, make_cache, param_tree_shapes
 from repro_torch.train import build_prefill_step
@@ -299,3 +299,128 @@ def test_one_rank_nccl_sync_grads_equals_gloo_on_the_cpu(cuda, tmp_path):
 
 def _check(ok):
     assert ok
+
+
+# ------------------------------------------------------------------ ssm scan
+def _scan_inputs(seed, B, T, H, Dk, Dv, dtype, device, bonus, rwkv=False):
+    """q, k, v ~ 0.3 N (in ``dtype``); log_a f32: the reference tests'
+    -(0.5 |N| + 0.01), or RWKV's clamped range [-2.3, -1e-4]; u and a
+    non-zero s0 for the bonus cases."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n = lambda *s: torch.randn(*s, generator=g)
+    q, k = n(B, T, H, Dk) * 0.3, n(B, T, H, Dk) * 0.3
+    v = n(B, T, H, Dv) * 0.3
+    if rwkv:
+        la = -torch.exp(n(B, T, H, Dk) * 3.0).clamp(1e-4, 2.3)
+    else:
+        la = -n(B, T, H, Dk).abs() * 0.5 - 0.01
+    u = n(H, Dk) * 0.1 if bonus else None
+    s0 = n(B, H, Dk, Dv) * 0.5 if bonus else None
+    to = lambda t, dt=torch.float32: None if t is None else t.to(dt).to(
+        device)
+    return (to(q, dtype), to(k, dtype), to(v, dtype), to(la), to(u),
+            to(s0))
+
+
+def _scan_close(got, want):
+    """f32: |d| <= 2e-4 max(1, max|plain|) (the reference's own 2e-4
+    between its kernel and oracle); bf16: that f32 slack plus 2 bf16 ulps
+    of |plain| (each side rounds its f32 sum once)."""
+    d = (got.float() - want.float()).abs()
+    tol = 2e-4 * max(1.0, want.float().abs().max().item())
+    if got.dtype == torch.bfloat16:
+        mag = want.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+        return bool((d <= tol + 2 * torch.exp2(torch.floor(torch.log2(mag))
+                                               - 7)).all())
+    return d.max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,Dk,Dv,chunk,bonus,rwkv", [
+    (1, 128, 2, 64, 64, 32, False, False),
+    (2, 96, 4, 64, 64, 32, False, False),
+    (1, 100, 1, 32, 64, 32, False, False),     # ragged T
+    (2, 64, 2, 16, 64, 16, False, False),
+    (1, 64, 2, 32, 32, 16, True, False),       # the bonus case
+    (2, 200, 3, 64, 64, 16, True, True),       # RWKV: clamped decays, s0
+    (1, 130, 2, 64, 16, 64, False, False),     # chunk 64, one slab
+])
+def test_ssm_scan_kernel_matches_plain_version(cuda, dtype, B, T, H, Dk, Dv,
+                                               chunk, bonus, rwkv):
+    q, k, v, la, u, s0 = _scan_inputs(T + Dk, B, T, H, Dk, Dv, dtype, cuda,
+                                      bonus, rwkv)
+    before = ssm_scan.launches
+    y, s = ops.ssm_scan(q, k, v, la, u=u, chunk=chunk, s0=s0,
+                        return_state=True)
+    assert ssm_scan.launches == before + 1
+    wy, ws = ref.ssm_scan_ref(q, k, v, la, u=u, chunk=chunk, s0=s0,
+                              return_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, T, H, Dv)
+    assert s.dtype == torch.float32 and s.shape == (B, H, Dk, Dv)
+    assert _scan_close(y, wy) and _scan_close(s, ws)
+    y2, s2 = ops.ssm_scan(q, k, v, la, u=u, chunk=chunk, s0=s0,
+                          return_state=True)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+def test_ssm_scan_wrapper_checks_its_inputs(cuda):
+    q, k, v, la, u, s0 = _scan_inputs(0, 1, 32, 2, 64, 64, torch.bfloat16,
+                                      cuda, True)
+    f = ssm_scan.ssm_scan
+    with pytest.raises(ValueError, match="v on cpu"):
+        f(q, k, v.cpu(), la, u)
+    with pytest.raises(TypeError, match="log_a is torch.bfloat16"):
+        f(q, k, v, la.bfloat16(), u)
+    with pytest.raises(TypeError, match="k is torch.float32"):
+        f(q, k.float(), v, la, u)
+    with pytest.raises(TypeError, match="float16"):
+        f(q.half(), k.half(), v.half(), la, u)
+    with pytest.raises(ValueError, match="chunk 48"):
+        f(q, k, v, la, u, chunk=48)
+    with pytest.raises(ValueError, match="Dk 48"):
+        f(*(t[..., :48].contiguous() for t in (q, k)), v,
+          la[..., :48].contiguous(), u[:, :48].contiguous())
+    with pytest.raises(ValueError, match="Dv 40"):
+        f(q, k, v[..., :40].contiguous(), la, u)
+    with pytest.raises(ValueError, match="u has shape"):
+        f(q, k, v, la, u[:1])
+    with pytest.raises(ValueError, match="s0 has shape"):
+        f(q, k, v, la, u, s0=s0[:, :1])
+    with pytest.raises(ValueError, match="not contiguous"):
+        f(*(t.transpose(1, 2) for t in (q, k, v, la)))
+    before = ssm_scan.launches
+    f(q, k, v, la, u, s0=s0)
+    assert ssm_scan.launches == before + 1
+
+
+def test_rwkv_smoke_generate_kernel_equals_ref(cuda):
+    """rwkv6-smoke served through the kernel (``impl="auto"``) against the
+    same path through ``chunked_linear_scan`` (``impl="ref"``), on the card:
+    the kernel launches once per layer of the prefill and never in decode;
+    the last-token logits within the rwkv6 bf16 logit tolerance of the CPU
+    tests (0.15, ``tests/test_torch_rwkv.py``), the greedy tokens equal
+    while the margin allows."""
+    cfg = get_smoke_config("rwkv6-3b")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                         device=cuda)
+    prompts = torch.randint(0, cfg.vocab, (4, 70), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+    runs = {}
+    for impl in ("auto", "ref"):
+        n0 = ssm_scan.launches
+        logits, _ = build_prefill_step(cfg, impl=impl)(
+            params, make_cache(cfg, 4, 70, device=cuda), tokens=prompts)
+        n1 = ssm_scan.launches
+        toks = generate(params, cfg, make_cache(cfg, 4, 86, device=cuda),
+                        tokens=prompts, gen=16, impl=impl).tokens
+        n2 = ssm_scan.launches
+        runs[impl] = (toks, logits.float(), n1 - n0, n2 - n1)
+    (ta, la, pa, ga), (tr, lr, pr, gr) = runs["auto"], runs["ref"]
+    assert (pa, ga) == (cfg.n_layers, cfg.n_layers)   # decode launches 0
+    assert (pr, gr) == (0, 0)
+    assert bool(torch.isfinite(la).all())
+    assert (la - lr).abs().max().item() <= 0.15
+    top2 = lr.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.15
+    assert torch.equal(ta[clear, 0], tr[clear, 0])

@@ -25,7 +25,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.kernels.flash_attention",
               "repro_torch.kernels.pig_aggregate",
               "repro_torch.collectives.schedules",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.models.rwkv",
+              "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

@@ -35,7 +35,7 @@ torch.set_num_threads(1)
 DENSE = ["granite_8b", "gemma_7b", "qwen2_5_32b", "h2o_danube_1_8b",
          "musicgen_large", "internvl2_76b"]
 OTHER = {"qwen2_moe_a2_7b": "11b", "qwen3_moe_235b_a22b": "11b",
-         "rwkv6_3b": "11c", "zamba2_7b": "11c"}
+         "zamba2_7b": "11c"}
 B, S, STEPS = 2, 16, 8
 LOGIT_TOL = 0.08
 CACHE_RTOL, CACHE_ATOL = 2.0 ** -6, 0.05
