@@ -6,9 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the four kernels from ``src/repro_torch/kernels/csrc``,
+2. build   - build the five kernels from ``src/repro_torch/kernels/csrc``,
              one ``nvcc`` per source, started together; print each
-             kernel's registers and shared memory;
+             kernel's registers, spills and shared memory;
 3. kernel  - hold seg_fanin against its plain PyTorch version on the card
              at the batch shapes (F = 24, 256, 1024 slots, rows = cells x 8)
              plus ragged layouts, ties, masked slots and a fully masked
@@ -23,21 +23,31 @@ Phases, in order; any failure exits non-zero:
 6. check   - R=3 in quick mode: kernel run == plain-version run on the card
              (bit-identical), a rerun is bit-identical, and the card agrees
              with the CPU within the parity tolerance;
-7. flash   - flash_attention against its plain version on the card in bf16
-             at granite-8b's prefill shape, granite at its max_seq_len, a
-             ragged S, gemma-7b's head dim 256 and a non-causal Dh 64 case:
-             within 2 bf16 ulps, one launch a call, a rerun bit-identical;
-8. timing  - flash_attention at granite's prefill shape beside its bound,
-             the plain version and PyTorch's fused attention (the yardstick,
-             which the port never calls);
+7. flash   - the sm90 flash_attention kernel against its plain version on
+             the card in bf16 at granite-8b's prefill shape, granite at its
+             max_seq_len, a ragged S, gemma-7b's head dim 256 and a
+             non-causal Dh 64 case in (B, H, S, Dh), and through
+             ``flash_attention_bshd`` on (B, S, H, Dh) tensors at granite's
+             prefill shape, a ragged S and S = 1: within 2e-3 + 1.6e-2
+             |plain|, one launch a call (of the sm90 kernel), a rerun
+             bit-identical; the CUDA-core kernel (f32, Dh 32) at the first
+             five cases in f32;
+8. timing  - the sm90 kernel at granite's prefill shape beside its bound,
+             the plain version, PyTorch's fused attention (the yardstick,
+             which the port never calls) and the CUDA-core kernel on the
+             same inputs; ``ops.flash_attention`` on the model's layout
+             beside the same kernel behind transposes and copies;
 9. serve   - granite-8b at full width (36 layers, random bf16 weights from a
              seed): 4 prompts of 2048 tokens prefilled and 31 greedy decode
              steps through ``repro_torch.launch.serve.generate`` with
-             ``impl="flash"``: flash_attention launches once per layer;
+             ``impl="flash"``: the sm90 kernel launches once per layer;
 10. check  - the same prefill through ``build_prefill_step`` with the plain
              attention (``impl="ref"``) agrees within a relative L2
-             tolerance; two flash prefills launch the kernel once per layer
-             each and are bit-identical; decode steps launch it never, and
+             tolerance; the kernel agrees with the plain version on layer
+             0's own attention inputs; the warm prefill and flash's share
+             of it are printed; two flash prefills launch the kernel once
+             per layer each and are bit-identical; decode steps launch it
+             never, and
              one decode step is counted (aten operations) and traced
              (device kernels, busy time, idle share); granite-smoke's
              ``generate`` agrees between the card and the CPU;
@@ -115,6 +125,15 @@ FLASH_CASES = (("granite prefill", 4, 32, 8, 2048, 128, True),
                ("ragged S", 2, 32, 8, 1000, 128, True),
                ("gemma-7b", 1, 16, 16, 1024, 256, True),
                ("Dh 64 non-causal", 2, 8, 2, 512, 64, False))
+# flash_attention_bshd on the model's (B, S, H, Dh) tensors: granite-8b's
+# prefill, a ragged S and one row
+FLASH_BSHD_CASES = (("granite prefill", 4, 32, 8, 2048, 128, True),
+                    ("ragged S", 2, 32, 8, 1000, 128, True),
+                    ("one row", 1, 32, 8, 1, 128, True))
+# the CUDA-core kernel (csrc/flash_attention.cu, which serves f32 and Dh 32)
+# against its plain version in f32 at FLASH_CASES: other summation orders,
+# expf against torch.exp (the f32 tolerance of tests/test_torch_cuda.py)
+FLASH_F32_ATOL, FLASH_F32_RTOL = 1e-5, 1e-4
 SERVE_ARCH, SERVE_B, SERVE_PROMPT, SERVE_GEN = "granite-8b", 4, 2048, 32
 # the impl="ref" prefill against the flash one, relative L2 of the
 # last-token logits over 36 bf16 layers: measured 0.0181 on an H100 80GB
@@ -391,7 +410,8 @@ def build_kernels():
     of their registers, shared memory and spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all(["seg_fanin", "flash_attention", "pig_aggregate",
+    libs = build.build_all(["seg_fanin", "flash_attention",
+                            "flash_attention_sm90", "pig_aggregate",
                             "ssm_scan"])
     log(f"build    {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -399,58 +419,92 @@ def build_kernels():
         entry = lib.name.split("-")[0]
         for line in lib.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                          r"(?:I(f|13__nv_bfloat16)Li(\d+)E(?:Li(\d+)E)?)?",
+                          r"(?:I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?)?",
                           line)
             if m:
                 kernel, dt, a, c = m.groups()
                 dims = f"Dh {a}" if c is None else f"Dk {a}, chunk {c}"
-                entry = kernel if dt is None else \
-                    f"{kernel}<{'f32' if dt == 'f' else 'bf16'}, {dims}>"
-            elif "registers" in line or "smem" in line or "spill" in line:
+                # the sm90 flash kernel takes bf16 alone: no type argument
+                dtype = {"f": "f32", None: "bf16"}.get(dt, "bf16")
+                entry = kernel if a is None else f"{kernel}<{dtype}, {dims}>"
+            elif ("registers" in line or "smem" in line or "spill" in line
+                  or "serialized" in line):
                 log(f"build    {entry} ptxas: {line.strip()}")
     log("build    flash_attention_kernel dynamic shared memory per block "
         "(3 x 64 x (Dh+1) + 64 x 64 f32, as its launcher requests): "
         + ", ".join(f"Dh {dh}: {(3 * 64 * (dh + 1) + 64 * 64) * 4} B"
                     for dh in (32, 64, 128, 256)))
+    log("build    flash_wgmma_kernel dynamic shared memory per block (bf16 "
+        "Q of 128 rows + 2 stages of K and V tiles of 64 keys "
+        "+ 128 B of mbarriers + 1024 B to align, as its launcher requests): "
+        + ", ".join(f"Dh {dh}: {sm90_smem(dh)} B" for dh in (64, 128, 256)))
+
+
+def sm90_smem(dh):
+    # bf16: Q of 128 rows, 2 stages of a K and a V tile of 64 keys
+    return 2 * 128 * dh + 2 * 2 * 2 * 64 * dh + 128 + 1024
 
 
 # --------------------------------------------------------------- phase 7
-def flash_inputs(B, Hq, Hkv, S, Dh, device, seed):
+def flash_inputs(B, Hq, Hkv, S, Dh, device, seed, layout="bhsd",
+                 dtype="bf16"):
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((B, h, S, Dh), generator=g, device=device
-                        ).to(torch.bfloat16) for h in (Hq, Hkv, Hkv)]
+    shape = (lambda h: (B, h, S, Dh)) if layout == "bhsd" else \
+        (lambda h: (B, S, h, Dh))
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dtype]
+    return [torch.randn(shape(h), generator=g, device=device).to(dt)
+            for h in (Hq, Hkv, Hkv)]
+
+
+def flash_case(device, name, B, Hq, Hkv, S, Dh, causal, layout, dtype, seed):
+    """One call of the layout's wrapper against the plain version: the
+    launches it made (all, sm90), rerun equality, and the error."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    q, kk, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed, layout, dtype)
+    fn = getattr(flash_attention, f"flash_attention_{layout}")
+    n0, s0 = flash_attention.launches, flash_attention.launches_sm90
+    got = fn(q, kk, v, causal=causal)
+    launched = flash_attention.launches - n0
+    sm90 = flash_attention.launches_sm90 - s0
+    again = fn(q, kk, v, causal=causal)
+    want = flash_attention._plain(q, kk, v, causal, None, layout)
+    torch.cuda.synchronize()
+    atol, rtol = (FLASH_ATOL, FLASH_RTOL) if dtype == "bf16" else \
+        (FLASH_F32_ATOL, FLASH_F32_RTOL)
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ratio = (diff / (atol + rtol * want.float().abs())).max().item()
+    same = torch.equal(got, again)
+    wants_sm90 = int(dtype == "bf16" and Dh in flash_attention.SM90_HEAD_DIMS)
+    ok = ratio <= 1.0 and launched == 1 and sm90 == wants_sm90 and same \
+        and bool(torch.isfinite(got.float()).all())
+    kernel = "flash_attention_sm90.cu" if sm90 else "flash_attention.cu"
+    log(f"flash    {name:20s} {layout} {dtype} B={B} Hq={Hq} Hkv={Hkv} S={S} "
+        f"Dh={Dh} causal={causal}: {kernel}, launches={launched} "
+        f"(sm90 {sm90}) rerun_equal={same} max_abs_err={err} worst "
+        f"err/tolerance={ratio:.4f} (tolerance |d| <= {atol} + "
+        f"{rtol}|ref|)")
+    if not ok:
+        raise SystemExit(f"flash_attention kernel != plain version at {name} "
+                         f"({layout}, {dtype})")
+    return err
 
 
 def check_flash(device):
-    import torch
-    from repro_torch.kernels import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
+    """The sm90 kernel at FLASH_CASES (B, H, S, Dh) and FLASH_BSHD_CASES
+    (B, S, H, Dh) in bf16; the CUDA-core kernel at FLASH_CASES in f32.
+    Returns the sm90 kernel's worst error."""
     worst = 0.0
-    for k, (name, B, Hq, Hkv, S, Dh, causal) in enumerate(FLASH_CASES):
-        q, kk, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed=k)
-        before = flash_attention.launches
-        got = flash_attention.flash_attention_bhsd(q, kk, v, causal=causal)
-        launched = flash_attention.launches - before
-        again = flash_attention.flash_attention_bhsd(q, kk, v, causal=causal)
-        want = flash_attention_ref(q, kk, v, causal=causal)
-        torch.cuda.synchronize()
-        diff = (got.float() - want.float()).abs()
-        err = diff.max().item()
-        ratio = (diff / (FLASH_ATOL + FLASH_RTOL * want.float().abs())
-                 ).max().item()
-        worst = max(worst, err)
-        same = torch.equal(got, again)
-        ok = ratio <= 1.0 and launched == 1 and same and bool(
-            torch.isfinite(got.float()).all())
-        log(f"flash    {name:20s} B={B} Hq={Hq} Hkv={Hkv} S={S} Dh={Dh} "
-            f"causal={causal} launches={launched} rerun_equal={same} "
-            f"max_abs_err={err} worst err/tolerance={ratio:.4f} (tolerance "
-            f"|d| <= {FLASH_ATOL} + {FLASH_RTOL}|ref|)")
-        if not ok:
-            raise SystemExit(f"flash_attention kernel != plain version at "
-                             f"{name}")
-        del q, kk, v, got, again, want, diff
+    for k, (name, *shape) in enumerate(FLASH_CASES):
+        worst = max(worst, flash_case(device, name, *shape, "bhsd", "bf16",
+                                      seed=k))
+    for k, (name, *shape) in enumerate(FLASH_BSHD_CASES):
+        worst = max(worst, flash_case(device, name, *shape, "bshd", "bf16",
+                                      seed=10 + k))
+    for k, (name, *shape) in enumerate(FLASH_CASES):
+        flash_case(device, name, *shape, "bhsd", "f32", seed=20 + k)
     return worst
 
 
@@ -458,27 +512,45 @@ def check_flash(device):
 def time_flash(device):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.kernels.ref import flash_attention_ref
     _, B, Hq, Hkv, S, Dh, _ = FLASH_CASES[0]
     q, k, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed=0)
-    ms = time_ms(lambda: flash_attention.flash_attention_bhsd(q, k, v), 20,
-                 warmup=3)
+    ms = time_ms(lambda: flash_attention.flash_attention_bhsd(q, k, v), 50,
+                 warmup=5)
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), 5, warmup=2)
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20, warmup=3)
-    ops = 4 * B * Hq * Dh * S * (S + 1) // 2    # QK^T and PV, causal pairs
+        q, k, v, is_causal=True, enable_gqa=True), 50, warmup=5)
+    # the CUDA-core kernel on the same bf16 inputs (its launcher still takes
+    # bf16 at Dh 128; the wrapper sends only f32 and Dh 32 there)
+    cuda_core_ms = time_ms(lambda: flash_attention._launch_f32(
+        q, k, v, True, 1.0 / math.sqrt(Dh)), 10, warmup=2)
+    # the model's layout: ops.flash_attention reads it where it lies; a
+    # (B, H, S, Dh) kernel needs q, k, v copied to that layout, and the
+    # model's reshape copies the transposed output back
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    bshd_ms = time_ms(lambda: ops.flash_attention(qs, ks, vs), 50, warmup=5)
+    copies_ms = time_ms(lambda: flash_attention.flash_attention_bhsd(
+        *(t.transpose(1, 2).contiguous() for t in (qs, ks, vs))
+    ).transpose(1, 2).reshape(B, S, Hq * Dh), 50, warmup=5)
+    ops_ = 4 * B * Hq * Dh * S * (S + 1) // 2    # QK^T and PV, causal pairs
     nbytes = 2 * B * S * Dh * (2 * Hq + 2 * Hkv)   # q, k, v read, o written
-    ops_ms = ops / BF16_OPS_S * 1e3
+    ops_ms = ops_ / BF16_OPS_S * 1e3
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     log(f"timing   flash_attention B={B} Hq={Hq} Hkv={Hkv} S={S} Dh={Dh} "
-        f"bf16 causal: kernel {ms:.6f} ms, plain version {plain_ms:.6f} ms, "
-        f"library (scaled_dot_product_attention) {library_ms:.6f} ms, "
-        f"bound {bound_ms:.6f} ms ({ops} ops at 989 TFLOP/s bf16 = "
-        f"{ops_ms:.6f} ms; {nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms)"
-        f"; kernel at {100 * bound_ms / ms:.2f}% of its bound, "
-        f"{ops / ms / 1e9:.2f} TFLOP/s")
+        f"bf16 causal: kernel (flash_attention_sm90.cu) {ms:.6f} ms, plain "
+        f"version {plain_ms:.6f} ms, library (scaled_dot_product_attention) "
+        f"{library_ms:.6f} ms, bound {bound_ms:.6f} ms ({ops_} ops at 989 "
+        f"TFLOP/s bf16 = {ops_ms:.6f} ms; {nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.6f} ms); kernel at {100 * bound_ms / ms:.2f}% of its "
+        f"bound, {ops_ / ms / 1e9:.2f} TFLOP/s, {ms / library_ms:.3f}x the "
+        f"library's time; the CUDA-core kernel (flash_attention.cu) on the "
+        f"same bf16 inputs {cuda_core_ms:.6f} ms")
+    log(f"timing   model layout (B, S, H, Dh): ops.flash_attention "
+        f"{bshd_ms:.6f} ms; the same kernel behind transposes and copies "
+        f"(q, k, v in, o out) {copies_ms:.6f} ms; the copies "
+        f"{copies_ms - bshd_ms:.6f} ms a layer")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": library_ms}
@@ -516,32 +588,36 @@ def run_serve(device, cfg, params, prompts):
     cache = make_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN, device=device)
     torch.cuda.reset_peak_memory_stats()
     flash_attention.launches = 0
+    flash_attention.launches_sm90 = 0
     segfanin.launches = 0
     out = generate(params, cfg, cache, tokens=prompts, gen=SERVE_GEN,
                    impl="flash")
     launches = flash_attention.launches
+    sm90 = flash_attention.launches_sm90
     peak = torch.cuda.max_memory_allocated()
     tok_s = SERVE_B * (SERVE_GEN - 1) / out.decode_s
     log(f"serve    prefill {SERVE_B}x{SERVE_PROMPT} tokens: "
         f"{1e3 * out.prefill_s:.3f} ms; decode {SERVE_GEN - 1} steps: "
         f"{1e3 * out.decode_s:.3f} ms, {tok_s:.2f} tokens/s; peak "
         f"memory {peak} bytes ({peak / 2**30:.2f} GiB); flash_attention "
-        f"launches {launches}, seg_fanin launches {segfanin.launches}")
+        f"launches {launches} (sm90 {sm90}), seg_fanin launches "
+        f"{segfanin.launches}")
     log(f"serve    first sequence: {out.tokens[0].tolist()}")
-    if launches != cfg.n_layers:
-        raise SystemExit(f"flash_attention launches {launches}, expected "
-                         f"{cfg.n_layers} (one per layer of the prefill)")
+    if not launches == sm90 == cfg.n_layers:
+        raise SystemExit(f"flash_attention launches {launches} (sm90 "
+                         f"{sm90}), expected {cfg.n_layers} of the sm90 "
+                         f"kernel (one per layer of the prefill)")
     if out.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
             ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
         raise SystemExit(f"generated tokens out of range: "
                          f"{out.tokens.shape}")
-    return launches, out.tokens
+    return sm90, out.tokens
 
 
 # --------------------------------------------------------------- phase 10
-def check_serve(device, cfg, params, prompts, served):
+def check_serve(device, cfg, params, prompts, served, flash_ms):
     import torch
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, ops
     from repro_torch.models import make_cache
     from repro_torch.train import build_prefill_step
 
@@ -558,7 +634,20 @@ def check_serve(device, cfg, params, prompts, served):
                 flash_attention.launches - n0)
 
     ref, _, ref_s, ref_n = prefill("ref")
-    a, ca, a_s, a_n = prefill("flash")
+    # the first flash prefill keeps layer 0's attention inputs
+    layer0 = []
+    served_by_kernel = ops.flash_attention
+
+    def keep_layer0(q, k, v, causal=True):
+        if not layer0:
+            layer0.append((q, k, v, causal))
+        return served_by_kernel(q, k, v, causal=causal)
+
+    ops.flash_attention = keep_layer0
+    try:
+        a, ca, a_s, a_n = prefill("flash")
+    finally:
+        ops.flash_attention = served_by_kernel
     b, cb, b_s, b_n = prefill("flash")
     same = torch.equal(a, b) and all(torch.equal(ca["kv"][n], cb["kv"][n])
                                      for n in ("k", "v", "pos"))
@@ -580,10 +669,35 @@ def check_serve(device, cfg, params, prompts, served):
         f"generate's: {same_first}); flash launches a prefill {a_n} / {b_n}"
         f", ref {ref_n}; warm prefill ms: flash {1e3 * a_s:.3f} / "
         f"{1e3 * b_s:.3f}, ref {1e3 * ref_s:.3f}")
+    layer_ratio = layer0_gap(*layer0[0])
+    log(f"serve    warm flash prefill {1e3 * b_s:.3f} ms; flash "
+        f"{cfg.n_layers} x {flash_ms:.6f} ms (phase 8) = "
+        f"{cfg.n_layers * flash_ms:.3f} ms, "
+        f"{100 * cfg.n_layers * flash_ms / (1e3 * b_s):.2f}% of it")
     if not (rel <= SERVE_REL_L2 and agree and same and same_first and finite
-            and a_n == b_n == cfg.n_layers and ref_n == 0):
+            and a_n == b_n == cfg.n_layers and ref_n == 0
+            and layer_ratio <= 1.0):
         raise SystemExit("granite-8b flash prefill check failed")
     trace_decode(device, cfg, params, ca, a.argmax(-1).to(torch.int32))
+
+
+def layer0_gap(q, k, v, causal):
+    """The kernel against the plain version on layer 0's own attention
+    inputs (B, S, H, Dh), so that an end-to-end gap can be told from a
+    kernel fault; held to phase 7's bound."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    got = flash_attention.flash_attention_bshd(q, k, v, causal=causal)
+    want = flash_attention._plain(q, k, v, causal, None, "bshd")
+    torch.cuda.synchronize()
+    d = (got.float() - want.float())
+    rel = (d.norm() / want.float().norm()).item()
+    ratio = (d.abs() / (FLASH_ATOL + FLASH_RTOL * want.float().abs())
+             ).max().item()
+    log(f"check    layer 0 attention {tuple(q.shape)}, sm90 kernel vs plain "
+        f"version on identical inputs: relative L2 {rel}, max |d| "
+        f"{d.abs().max().item()}, worst err/tolerance {ratio:.4f}")
+    return ratio
 
 
 def trace_decode(device, cfg, params, cache, tok):
@@ -1091,6 +1205,7 @@ def run_rwkv_serve(device, cfg, params, prompts):
     torch.cuda.reset_peak_memory_stats()
     for mod in (ssm_scan, flash_attention, segfanin, pig_aggregate):
         mod.launches = 0
+    flash_attention.launches_sm90 = 0
     out = generate(params, cfg, cache, tokens=prompts, gen=SERVE_GEN,
                    impl="auto")
     launches = ssm_scan.launches
@@ -1273,7 +1388,7 @@ def main() -> int:
     flash_timing = time_flash(device)
     cfg, params, prompts = serve_inputs(device)
     flash_launches, served = run_serve(device, cfg, params, prompts)
-    check_serve(device, cfg, params, prompts, served)
+    check_serve(device, cfg, params, prompts, served, flash_timing["ms"])
     check_smoke_serve(device, SERVE_ARCH, "flash", flash_attention,
                       SMOKE_LOGIT_TOL)
     del cfg, params, prompts, served
@@ -1297,7 +1412,7 @@ def main() -> int:
               "launches": launches, "max_abs_err": err, **timing,
               "library_ms": None}
     flash = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "replaces": "src/repro/kernels/flash_attention.py:22",
              "launches": flash_launches, "max_abs_err": flash_err,
              **flash_timing}

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # with their plain versions needs every multiply and add rounded on its own
 # (no FMA contraction)
 KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": (),
+                "flash_attention_sm90": (),
                 "pig_aggregate": ("-fmad=false",), "ssm_scan": ()}
 
 

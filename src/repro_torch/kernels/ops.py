@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 
 from . import ssm_scan as _ssm_scan
-from .flash_attention import flash_attention_bhsd
+from .flash_attention import flash_attention_bshd
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
 from .segfanin import seg_fanin_rows
@@ -18,13 +18,11 @@ from .segfanin import seg_fanin_rows
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Model-layout entry point: q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh) ->
-    (B,S,Hq,Dh) in q's dtype.  Unlike the TPU wrapper it pads neither Dh
-    (to 128, a TPU MXU rule) nor S (the kernel masks the ragged edge)."""
-    qt = q.transpose(1, 2).contiguous()
-    kt = k.transpose(1, 2).contiguous()
-    vt = v.transpose(1, 2).contiguous()
-    out = flash_attention_bhsd(qt, kt, vt, causal=causal)
-    return out.transpose(1, 2).to(q.dtype)
+    (B,S,Hq,Dh) in q's dtype.  The kernel reads the model's tensors where
+    they lie (no transpose, no copy).  Unlike the TPU wrapper it pads
+    neither Dh (to 128, a TPU MXU rule) nor S (the kernel masks the ragged
+    edge)."""
+    return flash_attention_bshd(q, k, v, causal=causal)
 
 
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

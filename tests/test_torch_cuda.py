@@ -110,29 +110,70 @@ def _qkv(seed, B, Hq, Hkv, S, Dh, dtype, device):
             for h in (Hq, Hkv, Hkv)]
 
 
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,Hq,Hkv,S,Dh,causal", [
     (2, 8, 2, 128, 64, True),      # GQA, whole tiles
     (1, 4, 4, 100, 128, True),     # ragged S
     (1, 4, 2, 70, 32, False),      # ragged, no mask
+    (1, 4, 2, 1, 128, True),       # one row
+    (2, 8, 2, 129, 128, True),     # one row past a 128-row tile
+    (1, 8, 2, 1000, 128, True),    # ragged, eight key tiles
+    (1, 4, 4, 200, 256, True),     # gemma-7b's head dim
 ])
-def test_flash_kernel_matches_plain_version(cuda, dtype, B, Hq, Hkv, S, Dh,
-                                            causal):
+def test_flash_kernel_matches_plain_version(cuda, layout, dtype, B, Hq, Hkv,
+                                            S, Dh, causal):
     """Tolerance: both compute in f32 and round once; bf16 within 2 ulps
     (|d| <= 2e-3 + 1.6e-2 |ref|), f32 within 1e-5 + 1e-4 |ref| (other
-    summation orders, expf against torch.exp)."""
+    summation orders, expf against torch.exp).  bf16 at Dh 64/128/256
+    launches the sm90 kernel (``launches_sm90`` moves), f32 and Dh 32 the
+    CUDA-core kernel (it does not); (B, S, H, Dh) goes through
+    ``flash_attention_bshd``."""
     q, k, v = _qkv(S + Dh, B, Hq, Hkv, S, Dh, dtype, cuda)
+    f = flash_attention.flash_attention_bhsd
+    if layout == "bshd":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        f = flash_attention.flash_attention_bshd
     before = flash_attention.launches
-    got = flash_attention.flash_attention_bhsd(q, k, v, causal=causal)
+    before_sm90 = flash_attention.launches_sm90
+    got = f(q, k, v, causal=causal)
     assert flash_attention.launches == before + 1
-    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    sm90 = dtype == torch.bfloat16 and Dh in (64, 128, 256)
+    assert flash_attention.launches_sm90 == before_sm90 + int(sm90)
+    t = (lambda a: a) if layout == "bhsd" else (lambda a: a.transpose(1, 2))
+    want = t(ref.flash_attention_ref(t(q), t(k), t(v), causal=causal))
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     atol, rtol = (2e-3, 1.6e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
     err = (got.float() - want.float()).abs()
     assert bool((err <= atol + rtol * want.float().abs()).all()), err.max()
-    assert torch.equal(got, flash_attention.flash_attention_bhsd(
-        q, k, v, causal=causal))
+    assert torch.equal(got, f(q, k, v, causal=causal))
+
+
+def test_flash_sm90_refuses_unaligned_views(cuda):
+    """TMA reads 16-byte aligned bases and strides: a view 2 bytes off, or
+    with an S stride of 264 bytes, raises before any launch."""
+    B, S, H, Dh = 1, 64, 2, 64
+    k, v = (torch.zeros(B, S, H, Dh, dtype=torch.bfloat16, device=cuda)
+            for _ in range(2))
+    flat = torch.zeros(B * S * H * Dh + 8, dtype=torch.bfloat16, device=cuda)
+    shifted = flat[1:1 + B * S * H * Dh].view(B, S, H, Dh)
+    wide = torch.zeros(B, S, H * Dh + 4, dtype=torch.bfloat16, device=cuda)
+    narrow = wide[..., :H * Dh].unflatten(-1, (H, Dh))
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention.flash_attention_bshd(shifted, k, v)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        flash_attention.flash_attention_bshd(narrow, k, v)
+    assert flash_attention.launches == before
+    # the strided view itself is served when its strides allow it
+    qkv = torch.randn(B, S, 3 * H * Dh, device=cuda).to(torch.bfloat16)
+    q3, k3, v3 = (qkv[..., i * H * Dh:(i + 1) * H * Dh].unflatten(
+        -1, (H, Dh)) for i in range(3))
+    got = flash_attention.flash_attention_bshd(q3, k3, v3)
+    want = flash_attention.flash_attention_bshd(
+        q3.contiguous(), k3.contiguous(), v3.contiguous())
+    assert torch.equal(got, want)
 
 
 def test_flash_wrapper_checks_its_inputs(cuda):
