@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the five kernels from ``src/repro_torch/kernels/csrc``,
+2. build   - build the six kernels from ``src/repro_torch/kernels/csrc``,
              one ``nvcc`` per source, started together; print each
              kernel's registers, spills and shared memory;
 3. kernel  - hold seg_fanin against its plain PyTorch version on the card
@@ -14,7 +14,8 @@ Phases, in order; any failure exits non-zero:
              plus ragged layouts, ties, masked slots and a fully masked
              segment: bit equality;
 4. timing  - seg_fanin at the N=1025 shape (384 rows x 1024 slots) beside
-             its bound and the plain version;
+             its bound and the plain version, and at N=257's (2048 x 256)
+             and R=3's (1536 x 24) beside theirs;
 5. main    - ``scale/batch/N=1025/R=32``, ``N=257/R=16`` and
              ``replicates/R=3`` at their full grids through
              ``repro_torch.experiments.runner.run_scenarios`` on cuda; every
@@ -31,7 +32,10 @@ Phases, in order; any failure exits non-zero:
              prefill shape, a ragged S and S = 1: within 2e-3 + 1.6e-2
              |plain|, one launch a call (of the sm90 kernel), a rerun
              bit-identical; the CUDA-core kernel (f32, Dh 32) at the first
-             five cases in f32;
+             five cases in f32; ``ops.flash_attention`` at head dims no
+             kernel takes, padded to the next (zamba2-7b's shared
+             attention, 32 heads of 112, and h2o-danube's 80, bf16, S
+             2048), within the same bound;
 8. timing  - the sm90 kernel at granite's prefill shape beside its bound,
              the plain version, PyTorch's fused attention (the yardstick,
              which the port never calls) and the CUDA-core kernel on the
@@ -69,20 +73,26 @@ Phases, in order; any failure exits non-zero:
              input; pig_aggregate launches once a leaf; ``final_norm`` and
              ``layers.attn.wk`` equal the same calls on the CPU through a
              one-rank gloo group, bit for bit;
-14. ssm    - ssm_scan against its plain PyTorch version on the card: the
-             eight cases of ``tests/test_kernels.py`` (four shapes x scalar
-             or per-channel decay, inclusive mask, f32), its bonus case,
-             rwkv6-3b's prefill shape (B 4, T 2048, H 40, Dk = Dv 64, chunk
-             16, bf16 q/k/v, clamped f32 log_a, u, a non-zero s0) and a
-             ragged T: y and the final state within the stated tolerance,
-             one launch a call, a rerun bit-identical;
-15. timing - ssm_scan at rwkv6-3b's prefill shape beside its bound and the
-             plain version (no PyTorch call computes it);
+14. ssm    - both ssm_scan kernels against their plain PyTorch version on
+             the card.  ssm_scan.cu: the eight cases of
+             ``tests/test_kernels.py`` (four shapes x scalar or per-channel
+             decay, inclusive mask, f32) and its bonus case;
+             ssm_scan_sm90.cu: rwkv6-3b's prefill shape (B 4, T 2048, H 40,
+             Dk = Dv 64, chunk 16, bf16 q/k/v, clamped f32 log_a, u, a
+             non-zero s0), a ragged T = 1000, T = 5, the f32 path and the
+             inclusive mask at Dv 128; y and the final state within the
+             stated tolerance, one launch a call (``launches_sm90`` moving
+             only for the sm90 kernel's cases), a rerun bit-identical; and
+             ssm_scan.cu called directly at rwkv6-3b's prefill shape;
+15. timing - both kernels at rwkv6-3b's prefill shape on the same inputs,
+             beside their bounds (bytes; 3xTF32 operations; ssm_scan.cu's
+             f32 operations on the CUDA cores) and the plain version (no
+             PyTorch call computes it);
 16. serve  - rwkv6-3b at full width (32 layers, random bf16 weights from a
              seed, LoRA-B drawn non-zero so that the decay depends on the
              data): 4 prompts of 2048 tokens and 31 greedy decode steps
-             through ``generate`` (``impl="auto"``), ssm_scan launching once
-             a layer in the prefill and never in decode; a second kernel
+             through ``generate`` (``impl="auto"``), ssm_scan_sm90 launching
+             once a layer in the prefill and never in decode; a second kernel
              prefill is bit-identical; the kernel against the plain scan
              (``impl="ref"``) layer by layer on identical bf16 inputs and
              end to end on an f32 copy of the model, within the stated
@@ -108,6 +118,8 @@ HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_S = 67e12          # H100 SXM f32 peak outside the tensor cores
 BF16_OPS_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 TF32_OPS_S = 495e12        # H100 SXM TF32 dense tensor-core peak
+KERNELS = ["seg_fanin", "flash_attention", "flash_attention_sm90",
+           "pig_aggregate", "ssm_scan", "ssm_scan_sm90"]
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
@@ -130,6 +142,11 @@ FLASH_CASES = (("granite prefill", 4, 32, 8, 2048, 128, True),
 FLASH_BSHD_CASES = (("granite prefill", 4, 32, 8, 2048, 128, True),
                     ("ragged S", 2, 32, 8, 1000, 128, True),
                     ("one row", 1, 32, 8, 1, 128, True))
+# ops.flash_attention at head dims no kernel takes, padded with zeros to
+# the next one (128) and scaled by 1/sqrt of the unpadded Dh: zamba2-7b's
+# shared attention (32 heads of 112) and h2o-danube-1.8b's (32 / 8 of 80)
+FLASH_PADDED_CASES = (("zamba2-7b shared attn", 1, 32, 32, 2048, 112, True),
+                      ("h2o-danube-1.8b", 1, 32, 8, 2048, 80, True))
 # the CUDA-core kernel (csrc/flash_attention.cu, which serves f32 and Dh 32)
 # against its plain version in f32 at FLASH_CASES: other summation orders,
 # expf against torch.exp (the f32 tolerance of tests/test_torch_cuda.py)
@@ -169,8 +186,9 @@ SMOKE_LOGIT_TOL = 0.08
 # side rounds once, and a value next to a power of two may round across)
 SSM_REL = 2e-4
 # (name, B, T, H, Dk, Dv, chunk, decay, dtype, bonus and s0): the eight
-# cases of tests/test_kernels.py, its bonus case, rwkv6-3b's prefill and a
-# ragged T at rwkv6-3b's width
+# cases of tests/test_kernels.py and its bonus case (ssm_scan.cu); rwkv6-3b's
+# prefill, a ragged T, T < 16, the f32 path and the inclusive mask at two
+# column blocks (ssm_scan_sm90.cu: Dk 64, Dv a multiple of 64, chunk 16)
 SSM_TEST_SHAPES = ((1, 128, 2, 64, 64, 32), (2, 96, 4, 64, 64, 32),
                    (1, 100, 1, 32, 64, 32), (2, 64, 2, 16, 64, 16))
 SSM_CASES = tuple(
@@ -178,7 +196,11 @@ SSM_CASES = tuple(
     for shape in SSM_TEST_SHAPES for decay in ("scalar", "channel")) + (
     ("test bonus", 1, 64, 2, 32, 32, 16, "channel", "f32", True),
     ("rwkv6-3b prefill", 4, 2048, 40, 64, 64, 16, "rwkv", "bf16", True),
-    ("ragged T", 4, 1000, 40, 64, 64, 16, "rwkv", "bf16", True))
+    ("ragged T", 4, 1000, 40, 64, 64, 16, "rwkv", "bf16", True),
+    ("T < 16", 4, 5, 40, 64, 64, 16, "rwkv", "bf16", True),
+    ("f32", 2, 1000, 40, 64, 64, 16, "rwkv", "f32", True),
+    ("inclusive Dv 128", 2, 500, 8, 64, 128, 16, "channel", "bf16", False))
+SSM_TIMED = next(c for c in SSM_CASES if c[0] == "rwkv6-3b prefill")
 RWKV_ARCH, RWKV_CHUNK = "rwkv6-3b", 16
 # the decay LoRA-B's std: with it w0 + tanh(x A) B has a std of ~5 and
 # log w = -exp(.) reaches both ends of the clamp [-2.3, -1e-4] (the JAX
@@ -299,12 +321,23 @@ def time_ms(fn, iters, warmup=10):
 
 
 def time_kernel(device):
+    """seg_fanin at each batch cell's shape (rows = cells x 8): N=1025's
+    (the JSON record), N=257's and R=3's, beside each shape's bound."""
+    out = None
+    for name, F, cells in (("N=1025/R=32", 1024, 48), ("N=257/R=16", 256, 256),
+                           ("R=3", 24, 192)):
+        timing = time_fanin(device, name, F, cells)
+        out = out or timing
+    return out
+
+
+def time_fanin(device, name, F, cells):
     from repro_torch.kernels import segfanin
     from repro_torch.kernels.ref import seg_fanin_rows_ref
-    sizes = layouts(1024)[0][1]
-    args = list(fanin_case(sizes, 48, 8, device, seed=7))
+    sizes = layouts(F)[0][1]
+    args = list(fanin_case(sizes, cells, 8, device, seed=7))
     args[0][:] = args[0].clamp(max=3.0)          # no masked slots
-    R, F = args[0].shape
+    R = args[0].shape[0]
     C = args[2].shape[0]
     ms = time_ms(lambda: segfanin.seg_fanin_rows(*args), 200)
     plain_ms = time_ms(lambda: seg_fanin_rows_ref(*args), 20, warmup=3)
@@ -314,10 +347,12 @@ def time_kernel(device):
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
     ops_ms = ops / F32_OPS_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    log(f"timing   seg_fanin rows={R} F={F}: kernel {ms:.6f} ms, plain "
-        f"version {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
+    log(f"timing   seg_fanin {name} rows={R} F={F}: kernel {ms:.6f} ms, "
+        f"plain version {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
         f"({nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms; {ops} ops at "
-        f"67 TFLOP/s = {ops_ms:.6f} ms), no single PyTorch call computes it")
+        f"67 TFLOP/s = {ops_ms:.6f} ms), kernel at "
+        f"{100 * bound_ms / ms:.2f}% of its bound; no single PyTorch call "
+        f"computes it")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -410,23 +445,22 @@ def build_kernels():
     of their registers, shared memory and spills."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all(["seg_fanin", "flash_attention",
-                            "flash_attention_sm90", "pig_aggregate",
-                            "ssm_scan"])
+    libs = build.build_all(KERNELS)
     log(f"build    {', '.join(lib.name for lib in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
         entry = lib.name.split("-")[0]
         for line in lib.with_suffix(".log").read_text().splitlines():
             m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)"
-                          r"(?:I(f|13__nv_bfloat16)?Li(\d+)E(?:Li(\d+)E)?)?",
-                          line)
+                          r"(?:I(f|13__nv_bfloat16)?"
+                          r"(?:Li(\d+)E(?:Li(\d+)E)?)?)?", line)
             if m:
                 kernel, dt, a, c = m.groups()
                 dims = f"Dh {a}" if c is None else f"Dk {a}, chunk {c}"
                 # the sm90 flash kernel takes bf16 alone: no type argument
                 dtype = {"f": "f32", None: "bf16"}.get(dt, "bf16")
-                entry = kernel if a is None else f"{kernel}<{dtype}, {dims}>"
+                entry = (f"{kernel}<{dtype}, {dims}>" if a is not None
+                         else f"{kernel}<{dtype}>" if dt else kernel)
             elif ("registers" in line or "smem" in line or "spill" in line
                   or "serialized" in line):
                 log(f"build    {entry} ptxas: {line.strip()}")
@@ -438,6 +472,13 @@ def build_kernels():
         "Q of 128 rows + 2 stages of K and V tiles of 64 keys "
         "+ 128 B of mbarriers + 1024 B to align, as its launcher requests): "
         + ", ".join(f"Dh {dh}: {sm90_smem(dh)} B" for dh in (64, 128, 256)))
+    import ctypes
+    smem = ctypes.CDLL(str(libs[KERNELS.index("ssm_scan_sm90")]))
+    smem = smem.ssm_scan_sm90_smem_bytes
+    log("build    ssm_mma_kernel dynamic shared memory per block (2 stages "
+        "of 64-row tiles of log_a, q, k, v + (k e^{Atot-A})^T + scores hi/lo "
+        "+ e^{Atot}, as its launcher requests): "
+        f"bf16 {smem(1)} B (two blocks an SM), f32 {smem(0)} B")
 
 
 def sm90_smem(dh):
@@ -505,7 +546,44 @@ def check_flash(device):
                                       seed=10 + k))
     for k, (name, *shape) in enumerate(FLASH_CASES):
         flash_case(device, name, *shape, "bhsd", "f32", seed=20 + k)
+    for k, (name, *shape) in enumerate(FLASH_PADDED_CASES):
+        worst = max(worst, flash_padded_case(device, name, *shape,
+                                             seed=30 + k))
     return worst
+
+
+def flash_padded_case(device, name, B, Hq, Hkv, S, Dh, causal, seed):
+    """``ops.flash_attention`` on (B, S, H, Dh) bf16 tensors whose head dim
+    no kernel takes: padded to ``padded_head_dim``, one launch of the sm90
+    kernel, against the plain version at the unpadded Dh."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops
+    q, kk, v = flash_inputs(B, Hq, Hkv, S, Dh, device, seed, "bshd")
+    n0, s0 = flash_attention.launches, flash_attention.launches_sm90
+    got = ops.flash_attention(q, kk, v, causal=causal)
+    launched = flash_attention.launches - n0
+    sm90 = flash_attention.launches_sm90 - s0
+    again = ops.flash_attention(q, kk, v, causal=causal)
+    want = flash_attention._plain(q, kk, v, causal, None, "bshd")
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    ratio = (diff / (FLASH_ATOL + FLASH_RTOL * want.float().abs())
+             ).max().item()
+    same = torch.equal(got, again)
+    size = flash_attention.padded_head_dim(q.dtype, Dh)
+    ok = (ratio <= 1.0 and launched == sm90 == 1 and same
+          and got.shape == q.shape
+          and bool(torch.isfinite(got.float()).all()))
+    log(f"flash    {name:20s} bshd bf16 B={B} Hq={Hq} Hkv={Hkv} S={S} "
+        f"Dh={Dh} padded to {size}: flash_attention_sm90.cu, launches="
+        f"{launched} (sm90 {sm90}) rerun_equal={same} max_abs_err={err} "
+        f"worst err/tolerance={ratio:.4f} (tolerance |d| <= {FLASH_ATOL} + "
+        f"{FLASH_RTOL}|ref|)")
+    if not ok:
+        raise SystemExit(f"flash_attention padded head dim != plain version "
+                         f"at {name}")
+    return err
 
 
 # --------------------------------------------------------------- phase 8
@@ -1076,7 +1154,29 @@ def bf16_ulp(x):
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
+def ssm_scan_cu(q, k, v, la, u, chunk, s0):
+    """ssm_scan.cu launched directly (the wrapper sends rwkv6's shapes to
+    the sm90 kernel), as the wrapper would launch it; counts nothing."""
+    import torch
+    from repro_torch.kernels import ssm_scan
+    B, T, H, Dk = q.shape
+    Dv = v.shape[-1]
+    y = torch.empty_like(v)
+    state = torch.empty((B, H, Dk, Dv), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = ssm_scan._launcher()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(), ptr(u),
+        ptr(s0), y.data_ptr(), state.data_ptr(), B, T, H, Dk, Dv, chunk,
+        ssm_scan.DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise SystemExit(f"ssm_scan.cu launch failed: CUDA error {err}")
+    return y, state
+
+
 def check_ssm(device):
+    """Every SSM case through ``ops.ssm_scan`` (the kernel the dispatch
+    rule picks), and ssm_scan.cu directly at rwkv6-3b's prefill shape.
+    Returns the worst error of the sm90 kernel's cases."""
     import torch
     from repro_torch.kernels import ops, ssm_scan
     from repro_torch.kernels.ref import ssm_scan_ref
@@ -1087,28 +1187,54 @@ def check_ssm(device):
                                         bonus, device, seed=i)
         call = lambda: ops.ssm_scan(q, k, v, la, u=u, chunk=chunk, s0=s0,
                                     return_state=True)
-        before = ssm_scan.launches
+        before, before90 = ssm_scan.launches, ssm_scan.launches_sm90
         y, s = call()
         launched = ssm_scan.launches - before
+        sm90 = ssm_scan.launches_sm90 - before90
         y2, s2 = call()
         wy, ws = ssm_scan_ref(q, k, v, la, u=u, chunk=chunk, s0=s0,
                               return_state=True)
         torch.cuda.synchronize()
         ey, ry = ssm_error(y, wy)
         es, rs = ssm_error(s, ws)
-        worst = max(worst, ey, es)
+        wants90 = ssm_scan.uses_sm90(q.dtype, Dk, Dv, chunk)
+        if wants90:
+            worst = max(worst, ey, es)
         same = torch.equal(y, y2) and torch.equal(s, s2)
         finite = bool(torch.isfinite(y.float()).all()) and bool(
             torch.isfinite(s).all())
-        ok = ry <= 1 and rs <= 1 and launched == 1 and same and finite
+        ok = (ry <= 1 and rs <= 1 and launched == 1 and sm90 == int(wants90)
+              and same and finite)
+        kernel = "ssm_scan_sm90.cu" if sm90 else "ssm_scan.cu"
         log(f"ssm      {name:16s} B={B} T={T} H={H} Dk={Dk} Dv={Dv} "
-            f"chunk={chunk} {dtype} bonus={bonus} launches={launched} "
-            f"rerun_equal={same} y max_abs_err={ey} (err/tolerance "
-            f"{ry:.4f}) state max_abs_err={es} (err/tolerance {rs:.4f}); "
-            f"max|y| {wy.float().abs().max().item():.4f}, max|state| "
-            f"{ws.abs().max().item():.4f}")
+            f"chunk={chunk} {dtype} bonus={bonus}: {kernel}, launches="
+            f"{launched} (sm90 {sm90}) rerun_equal={same} y max_abs_err={ey} "
+            f"(err/tolerance {ry:.4f}) state max_abs_err={es} (err/tolerance "
+            f"{rs:.4f}); max|y| {wy.float().abs().max().item():.4f}, "
+            f"max|state| {ws.abs().max().item():.4f}")
         if not ok:
             raise SystemExit(f"ssm_scan kernel != plain version at {name}")
+        if name == SSM_TIMED[0]:
+            # how far the f32 sums sit from the plain version's: phase 16's
+            # per-layer check reads the bf16 roundings they flip
+            flips = (y != wy).float().mean().item()
+            f32 = [t.float() for t in (q, k, v)]
+            gap = rel_l2(ops.ssm_scan(*f32, la, u=u, chunk=chunk, s0=s0),
+                         ssm_scan_ref(*f32, la, u=u, chunk=chunk, s0=s0))
+            log(f"ssm      {name:16s} y differs from the plain version's "
+                f"in {flips} of its bf16 values; on f32 copies of the "
+                f"inputs, relative L2 {gap}")
+            y, s = ssm_scan_cu(q, k, v, la, u, chunk, s0)
+            y2, s2 = ssm_scan_cu(q, k, v, la, u, chunk, s0)
+            torch.cuda.synchronize()
+            ey, ry = ssm_error(y, wy)
+            es, rs = ssm_error(s, ws)
+            same = torch.equal(y, y2) and torch.equal(s, s2)
+            log(f"ssm      {name:16s} ssm_scan.cu called directly: "
+                f"rerun_equal={same} y max_abs_err={ey} (err/tolerance "
+                f"{ry:.4f}) state max_abs_err={es} (err/tolerance {rs:.4f})")
+            if not (ry <= 1 and rs <= 1 and same):
+                raise SystemExit(f"ssm_scan.cu != plain version at {name}")
         del q, k, v, la, u, s0, y, s, y2, s2, wy, ws
     log(f"ssm      tolerance: f32 y and state |d| <= {SSM_REL} max(1, "
         f"max|plain|); bf16 y |d| <= {SSM_REL} max(1, max|plain|) + 2 "
@@ -1118,16 +1244,21 @@ def check_ssm(device):
 
 # --------------------------------------------------------------- phase 15
 def time_ssm(device):
-    """The kernel at rwkv6-3b's prefill shape, its bound (each input read
-    once, y and the state written once; the products of every chunk that
-    the mask leaves live) and the plain version."""
+    """Both kernels at rwkv6-3b's prefill shape on the same inputs, their
+    bounds (each input read once, y and the state written once; the
+    products of every chunk that the mask leaves live, in f32 on the CUDA
+    cores for ssm_scan.cu and in three TF32 passes on the tensor cores for
+    ssm_scan_sm90.cu) and the plain version.  Returns the sm90 kernel's
+    record and the CUDA-core kernel's time."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ssm_scan_ref
-    name, B, T, H, Dk, Dv, C, decay, dtype, bonus = SSM_CASES[-2]
+    name, B, T, H, Dk, Dv, C, decay, dtype, bonus = SSM_TIMED
     q, k, v, la, u, s0 = ssm_inputs(B, T, H, Dk, Dv, decay, dtype, bonus,
                                     device, seed=0)
     ms = time_ms(lambda: ops.ssm_scan(q, k, v, la, u=u, chunk=C, s0=s0,
                                       return_state=True), 50, warmup=5)
+    cu_ms = time_ms(lambda: ssm_scan_cu(q, k, v, la, u, C, s0), 20,
+                    warmup=3)
     plain_ms = time_ms(lambda: ssm_scan_ref(q, k, v, la, u=u, chunk=C, s0=s0,
                                             return_state=True), 3, warmup=1)
     rows = B * T * H
@@ -1143,22 +1274,28 @@ def time_ssm(device):
     ops_ = chunks * 2 * (live * (Dk + Dv) + 2 * C * Dk * Dv)
     square_ops = chunks * 2 * C * (C * Dk + C * Dv + 2 * Dk * Dv)
     bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops_ / F32_OPS_S * 1e3
-    tf32_ms = ops_ / TF32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
+    f32_ms = ops_ / F32_OPS_S * 1e3
+    tf32x3_ms = 3 * ops_ / TF32_OPS_S * 1e3
+    bound_ms = max(bytes_ms, tf32x3_ms)
+    cu_bound_ms = max(bytes_ms, f32_ms)
     log(f"timing   ssm_scan {name} B={B} T={T} H={H} Dk={Dk} Dv={Dv} "
-        f"chunk={C} bf16 bonus: kernel {ms:.6f} ms, plain version "
-        f"{plain_ms:.6f} ms, bound {bound_ms:.6f} ms ({nbytes} bytes at "
-        f"3.35 TB/s = {bytes_ms:.6f} ms; {ops_} f32 ops at 67 TFLOP/s on "
-        f"the CUDA cores = {ops_ms:.6f} ms, the bound this f32 design is "
-        f"held to; at 495 TFLOP/s TF32 {tf32_ms:.6f} ms; the full C x C "
-        f"squares would be {square_ops} ops = "
-        f"{square_ops / F32_OPS_S * 1e3:.6f} ms); kernel at "
-        f"{100 * bound_ms / ms:.2f}% of its bound, {ops_ / ms / 1e9:.2f} "
-        f"TFLOP/s; library call: none (no single PyTorch call computes a "
-        f"chunked linear recurrence with per-channel decay)")
+        f"chunk={C} bf16 bonus, on the same inputs: ssm_scan_sm90.cu "
+        f"{ms:.6f} ms, ssm_scan.cu {cu_ms:.6f} ms ({cu_ms / ms:.3f}x), plain "
+        f"version {plain_ms:.6f} ms; {nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.6f} ms; {ops_} operations (the mask's live triangles; "
+        f"the full C x C squares would be {square_ops}): in three TF32 "
+        f"passes at 495 TFLOP/s {tf32x3_ms:.6f} ms, in f32 at 67 TFLOP/s on "
+        f"the CUDA cores {f32_ms:.6f} ms")
+    log(f"timing   ssm_scan_sm90.cu bound {bound_ms:.6f} ms (bytes), kernel "
+        f"at {100 * bound_ms / ms:.2f}% of it, {ops_ / ms / 1e9:.2f} TFLOP/s "
+        f"of the live operations; ssm_scan.cu bound {cu_bound_ms:.6f} ms "
+        f"(f32 operations on the CUDA cores), kernel at "
+        f"{100 * cu_bound_ms / cu_ms:.2f}% of it, "
+        f"{ops_ / cu_ms / 1e9:.2f} TFLOP/s; library call: none (no single "
+        f"PyTorch call computes a chunked linear recurrence with per-channel "
+        f"decay)")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= tf32x3_ms else "operations"}
 
 
 # --------------------------------------------------------------- phase 16
@@ -1206,9 +1343,10 @@ def run_rwkv_serve(device, cfg, params, prompts):
     for mod in (ssm_scan, flash_attention, segfanin, pig_aggregate):
         mod.launches = 0
     flash_attention.launches_sm90 = 0
+    ssm_scan.launches_sm90 = 0
     out = generate(params, cfg, cache, tokens=prompts, gen=SERVE_GEN,
                    impl="auto")
-    launches = ssm_scan.launches
+    launches, sm90 = ssm_scan.launches, ssm_scan.launches_sm90
     others = (flash_attention.launches, segfanin.launches,
               pig_aggregate.launches)
     peak = torch.cuda.max_memory_allocated()
@@ -1218,25 +1356,26 @@ def run_rwkv_serve(device, cfg, params, prompts):
         f"{1e3 * out.decode_s:.3f} ms, "
         f"{1e3 * out.decode_s / (SERVE_GEN - 1):.3f} ms a step, "
         f"{tok_s:.2f} tokens/s; peak memory {peak} bytes "
-        f"({peak / 2**30:.2f} GiB); ssm_scan launches {launches}, "
-        f"flash/seg_fanin/pig_aggregate launches {others}")
+        f"({peak / 2**30:.2f} GiB); ssm_scan launches {launches} (sm90 "
+        f"{sm90}), flash/seg_fanin/pig_aggregate launches {others}")
     log(f"serve    first sequence: {out.tokens[0].tolist()}")
-    if launches != cfg.n_layers or any(others):
-        raise SystemExit(f"ssm_scan launches {launches} (expected "
-                         f"{cfg.n_layers}, one per layer of the prefill), "
-                         f"other kernels {others}")
+    if not launches == sm90 == cfg.n_layers or any(others):
+        raise SystemExit(f"ssm_scan launches {launches} (sm90 {sm90}; "
+                         f"expected {cfg.n_layers} of the sm90 kernel, one "
+                         f"per layer of the prefill), other kernels "
+                         f"{others}")
     if out.tokens.shape != (SERVE_B, SERVE_GEN) or not bool(
             ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
         raise SystemExit(f"generated tokens out of range: "
                          f"{out.tokens.shape}")
-    return launches, out.tokens
+    return sm90, out.tokens
 
 
 def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def check_rwkv_serve(device, cfg, params, prompts, served):
+def check_rwkv_serve(device, cfg, params, prompts, served, ssm_ms):
     import copy
 
     import torch
@@ -1248,13 +1387,13 @@ def check_rwkv_serve(device, cfg, params, prompts, served):
         cache = make_cache(cfg, SERVE_B, SERVE_PROMPT + SERVE_GEN,
                            dtype=dtype, device=device)
         torch.cuda.synchronize()
-        n0 = ssm_scan.launches
+        n0 = ssm_scan.launches_sm90
         t0 = time.perf_counter()
         logits, cache = build_prefill_step(cfg, impl=impl)(
             p, cache, tokens=prompts)
         torch.cuda.synchronize()
         return (logits.float(), cache["rwkv"], time.perf_counter() - t0,
-                ssm_scan.launches - n0)
+                ssm_scan.launches_sm90 - n0)
 
     def states_rel(ca, cr):
         return [rel_l2(ca["state"][i], cr["state"][i])
@@ -1276,12 +1415,16 @@ def check_rwkv_serve(device, cfg, params, prompts, served):
         f"layer and in f32 below); greedy first tokens {a.argmax(-1).tolist()} vs "
         f"{ref.argmax(-1).tolist()}; finite={finite}; two kernel prefills "
         f"bit-identical={same} (first tokens equal generate's: "
-        f"{same_first}); ssm_scan launches a prefill {a_n} / {b_n}, ref "
+        f"{same_first}); ssm_scan_sm90 launches a prefill {a_n} / {b_n}, ref "
         f"{ref_n}; warm prefill ms: kernel {1e3 * a_s:.3f} / "
         f"{1e3 * b_s:.3f}, ref {1e3 * ref_s:.3f}")
     if not (same and same_first and finite and a_n == b_n == cfg.n_layers
             and ref_n == 0):
         raise SystemExit("rwkv6-3b kernel prefill check failed")
+    log(f"serve    warm kernel prefill {1e3 * b_s:.3f} ms; ssm_scan_sm90 "
+        f"{cfg.n_layers} x {ssm_ms:.6f} ms (phase 15) = "
+        f"{cfg.n_layers * ssm_ms:.3f} ms, "
+        f"{100 * cfg.n_layers * ssm_ms / (1e3 * b_s):.2f}% of it")
     del cr, ref
 
     # decode continues from the kernel prefill's state: no launches
@@ -1403,7 +1546,7 @@ def main() -> int:
     ssm_timing = time_ssm(device)
     cfg, params, prompts = rwkv_inputs(device)
     ssm_launches, served = run_rwkv_serve(device, cfg, params, prompts)
-    check_rwkv_serve(device, cfg, params, prompts, served)
+    check_rwkv_serve(device, cfg, params, prompts, served, ssm_timing["ms"])
     check_smoke_serve(device, RWKV_ARCH, "auto", ssm_scan, RWKV_SMOKE_LOGIT_TOL)
 
     record = {"name": "seg_fanin", "route": "cuda",
@@ -1421,8 +1564,8 @@ def main() -> int:
            "replaces": "src/repro/kernels/pig_aggregate.py:20",
            "launches": pig_launches, "max_abs_err": pig_err, **pig_timing,
            "library_ms": None}
-    ssm = {"name": "ssm_scan", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
+    ssm = {"name": "ssm_scan_sm90", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssm_scan_sm90.cu",
            "replaces": "src/repro/kernels/ssm_scan.py:26",
            "launches": ssm_launches, "max_abs_err": ssm_err, **ssm_timing,
            "library_ms": None}

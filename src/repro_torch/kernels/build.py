@@ -27,7 +27,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (no FMA contraction)
 KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": (),
                 "flash_attention_sm90": (),
-                "pig_aggregate": ("-fmad=false",), "ssm_scan": ()}
+                "pig_aggregate": ("-fmad=false",), "ssm_scan": (),
+                "ssm_scan_sm90": ()}
 
 
 def nvcc() -> str:

@@ -12,7 +12,10 @@ Two kernels serve a CUDA tensor, chosen from its dtype and head dim alone:
   at Dh 32, in (B, H, S, Dh) only.
 
 Anything else raises; nothing falls back from one kernel to the other or
-to the plain version.  A CPU tensor goes to the plain version
+to the plain version.  ``flash_attention_padded`` serves the other head
+dims up to 256 as the JAX package's wrapper does: zeros pad Dh up to the
+next size the kernel takes (``padded_head_dim``) and the scale stays
+1/sqrt of the unpadded Dh.  A CPU tensor goes to the plain version
 (``ref.flash_attention_ref``).  ``launches`` counts every kernel launch,
 ``launches_sm90`` those of the sm90 kernel alone.
 """
@@ -118,6 +121,40 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Dh not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {Dh} unsupported; the kernels "
                          f"take {HEAD_DIMS}")
+
+
+def padded_head_dim(dtype: torch.dtype, Dh: int) -> int:
+    """The head dim a kernel serves ``Dh`` at: Dh itself where a kernel
+    takes it, else the next size that the kernel for ``dtype`` takes (bf16:
+    the sm90 kernel's 64/128/256; f32: 32/64/128/256).  Raises above 256."""
+    if Dh in HEAD_DIMS:
+        return Dh
+    sizes = SM90_HEAD_DIMS if dtype == torch.bfloat16 else HEAD_DIMS
+    for size in sizes:
+        if Dh < size:
+            return size
+    raise ValueError(f"flash_attention: head dim {Dh} exceeds the kernels' "
+                     f"limit of {sizes[-1]}")
+
+
+def flash_attention_padded(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, causal: bool = True,
+                           attend=None) -> torch.Tensor:
+    """The model's layout at any head dim up to 256: q, k, v padded with
+    zeros along Dh to ``padded_head_dim`` (zero channels add nothing to
+    q . k, and the padded output channels are dropped), ``attend`` (by
+    default ``flash_attention_bshd``) called with sm_scale = 1/sqrt of the
+    unpadded Dh, and the result sliced back to Dh.  A head dim that a
+    kernel takes is passed through unchanged, with no copy."""
+    attend = flash_attention_bshd if attend is None else attend
+    Dh = q.shape[-1]
+    size = padded_head_dim(q.dtype, Dh)
+    if size == Dh:
+        return attend(q, k, v, causal=causal)
+    pad = lambda t: torch.nn.functional.pad(t, (0, size - Dh))
+    out = attend(pad(q), pad(k), pad(v), causal=causal,
+                 sm_scale=1.0 / math.sqrt(Dh))
+    return out[..., :Dh]
 
 
 def _uses_sm90(q: torch.Tensor) -> bool:

@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 
 from . import ssm_scan as _ssm_scan
-from .flash_attention import flash_attention_bshd
+from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
 from .segfanin import seg_fanin_rows
@@ -20,9 +20,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Model-layout entry point: q (B,S,Hq,Dh), k/v (B,S,Hkv,Dh) ->
     (B,S,Hq,Dh) in q's dtype.  The kernel reads the model's tensors where
     they lie (no transpose, no copy).  Unlike the TPU wrapper it pads
-    neither Dh (to 128, a TPU MXU rule) nor S (the kernel masks the ragged
-    edge)."""
-    return flash_attention_bshd(q, k, v, causal=causal)
+    neither S (the kernel masks the ragged edge) nor a head dim that a
+    kernel takes; on a CUDA tensor any other head dim up to 256 (zamba2's
+    112, h2o-danube's 80) is padded with zeros to the next one and scaled
+    by 1/sqrt of its own Dh, as the TPU wrapper pads to 128
+    (``flash_attention.flash_attention_padded``).  A CPU tensor runs the
+    plain version, which takes any Dh."""
+    if q.device.type == "cpu":
+        return flash_attention_bshd(q, k, v, causal=causal)
+    return flash_attention_padded(q, k, v, causal=causal)
 
 
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -385,15 +385,22 @@ def _scan_close(got, want):
     (1, 64, 2, 32, 32, 16, True, False),       # the bonus case
     (2, 200, 3, 64, 64, 16, True, True),       # RWKV: clamped decays, s0
     (1, 130, 2, 64, 16, 64, False, False),     # chunk 64, one slab
+    (1, 1000, 2, 64, 64, 16, True, True),      # sm90: ragged T, RWKV
+    (2, 5, 3, 64, 64, 16, True, True),         # sm90: T < 16
+    (2, 128, 2, 64, 128, 16, False, False),    # sm90: two column blocks
 ])
 def test_ssm_scan_kernel_matches_plain_version(cuda, dtype, B, T, H, Dk, Dv,
                                                chunk, bonus, rwkv):
+    """Dk 64, Dv a multiple of 64 and chunk 16 launch the sm90 kernel
+    (``launches_sm90`` moves), the rest ssm_scan.cu."""
     q, k, v, la, u, s0 = _scan_inputs(T + Dk, B, T, H, Dk, Dv, dtype, cuda,
                                       bonus, rwkv)
-    before = ssm_scan.launches
+    before, before_sm90 = ssm_scan.launches, ssm_scan.launches_sm90
     y, s = ops.ssm_scan(q, k, v, la, u=u, chunk=chunk, s0=s0,
                         return_state=True)
     assert ssm_scan.launches == before + 1
+    sm90 = Dk == 64 and Dv % 64 == 0 and chunk == 16
+    assert ssm_scan.launches_sm90 == before_sm90 + int(sm90)
     wy, ws = ref.ssm_scan_ref(q, k, v, la, u=u, chunk=chunk, s0=s0,
                               return_state=True)
     torch.cuda.synchronize()
@@ -433,6 +440,50 @@ def test_ssm_scan_wrapper_checks_its_inputs(cuda):
     before = ssm_scan.launches
     f(q, k, v, la, u, s0=s0)
     assert ssm_scan.launches == before + 1
+
+
+def test_ssm_scan_sm90_refuses_unaligned_inputs(cuda):
+    """The sm90 kernel copies 16 bytes at a time: a q 2 bytes off its
+    alignment raises before any launch; the same values aligned launch."""
+    q, k, v, la, u, s0 = _scan_inputs(1, 1, 32, 2, 64, 64, torch.bfloat16,
+                                      cuda, True)
+    flat = torch.zeros(q.numel() + 8, dtype=q.dtype, device=cuda)
+    shifted = flat[1:1 + q.numel()].view(q.shape)
+    shifted.copy_(q)
+    before, before_sm90 = ssm_scan.launches, ssm_scan.launches_sm90
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ssm_scan.ssm_scan(shifted, k, v, la, u, chunk=16)
+    assert ssm_scan.launches == before
+    y = ssm_scan.ssm_scan(q, k, v, la, u, chunk=16)
+    assert ssm_scan.launches_sm90 == before_sm90 + 1
+    assert torch.equal(y, ssm_scan.ssm_scan(shifted.clone(), k, v, la, u,
+                                            chunk=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Dh,Hq,Hkv", [(80, 8, 2), (112, 8, 8)])
+def test_flash_padded_head_dims_match_plain_version(cuda, dtype, Dh, Hq,
+                                                    Hkv):
+    """``ops.flash_attention`` at head dims no kernel takes (h2o-danube's
+    80, zamba2-7b's 112): padded to 128, one launch (of the sm90 kernel in
+    bf16), within the kernels' tolerances of the plain version at the
+    unpadded Dh."""
+    B, S = 2, 300
+    q, k, v = (t.transpose(1, 2).contiguous() for t in
+               _qkv(Dh, B, Hq, Hkv, S, Dh, dtype, cuda))
+    before = flash_attention.launches
+    before_sm90 = flash_attention.launches_sm90
+    got = ops.flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.launches_sm90 == before_sm90 + int(
+        dtype == torch.bfloat16)
+    want = flash_attention._plain(q, k, v, True, None, "bshd")
+    torch.cuda.synchronize()
+    assert got.shape == q.shape and got.dtype == dtype
+    atol, rtol = (2e-3, 1.6e-2) if dtype == torch.bfloat16 else (1e-5, 1e-4)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all()), err.max()
+    assert torch.equal(got, ops.flash_attention(q, k, v, causal=True))
 
 
 def test_rwkv_smoke_generate_kernel_equals_ref(cuda):

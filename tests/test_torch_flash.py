@@ -108,3 +108,72 @@ def test_wrapper_refuses_what_the_plain_version_cannot_do():
     m = torch.empty(1, 2, 8, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention.flash_attention_bhsd(m, m, m)
+
+
+def _attend_plain(q, k, v, causal=True, sm_scale=None):
+    """Attention in f32 with an explicit scale on (B, S, H, Dh), rounded
+    once to q's dtype: the plain stand-in for the kernel behind
+    ``flash_attention_padded`` (which calls it with the padded Dh)."""
+    rep = q.shape[2] // k.shape[2]
+    t = lambda a: a.float().transpose(1, 2)
+    qf = t(q)
+    kf, vf = (t(a).repeat_interleave(rep, dim=1) for a in (k, v))
+    s = (qf @ kf.transpose(-1, -2)) * sm_scale
+    if causal:
+        S = q.shape[1]
+        s = s.masked_fill(torch.ones(S, S, dtype=torch.bool).triu(1), -1e30)
+    return (torch.softmax(s, dim=-1) @ vf).transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("Dh,Hq,Hkv", [
+    (80, 4, 2),       # h2o-danube's head dim, GQA
+    (112, 4, 4),      # zamba2-7b's shared attention
+])
+def test_padded_head_dims_match_pallas_kernel(Dh, Hq, Hkv, dtype):
+    """What ``ops.flash_attention`` does on a CUDA tensor whose head dim no
+    kernel takes, rehearsed with a plain attention in the kernel's place:
+    q, k, v padded with zeros to 128 and scaled by 1/sqrt of the unpadded
+    Dh, the output sliced back; against the JAX package's wrapper, which
+    pads to 128 the same way, in interpret mode.  On the CPU the entry
+    point itself runs the plain version at the unpadded Dh."""
+    B, S = 2, 96
+    (jq, tq), (jk, tk), (jv, tv) = _inputs(Dh, (B, S, Hq, Dh),
+                                           (B, S, Hkv, Dh), dtype)
+    want = jops.flash_attention(jq, jk, jv, causal=True)
+    seen = []
+
+    def attend(q, k, v, causal=True, sm_scale=None):
+        seen.append((tuple(q.shape), sm_scale))
+        assert not q[..., Dh:].any() and not v[..., Dh:].any()
+        return _attend_plain(q, k, v, causal, sm_scale)
+
+    got = flash_attention.flash_attention_padded(tq, tk, tv, attend=attend)
+    assert seen == [((B, S, Hq, 128), 1.0 / np.sqrt(Dh))]
+    assert got.shape == (B, S, Hq, Dh) and got.dtype == tq.dtype
+    _assert_close(got, want, dtype)
+    before = flash_attention.launches
+    _assert_close(ops.flash_attention(tq, tk, tv, causal=True), want, dtype)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype,Dh,size", [
+    (torch.bfloat16, 80, 128), (torch.bfloat16, 112, 128),
+    (torch.bfloat16, 16, 64),        # the sm90 kernel's least
+    (torch.bfloat16, 32, 32),        # the CUDA-core kernel takes it
+    (torch.bfloat16, 200, 256),
+    (torch.float32, 16, 32), (torch.float32, 80, 128),
+    (torch.float32, 128, 128),       # taken: passed through unchanged
+])
+def test_padded_head_dim(dtype, Dh, size):
+    assert flash_attention.padded_head_dim(dtype, Dh) == size
+
+
+def test_head_dims_above_256_raise():
+    with pytest.raises(ValueError, match="limit of 256"):
+        flash_attention.padded_head_dim(torch.bfloat16, 320)
+    q = torch.zeros(1, 8, 2, 64)
+    calls = []
+    out = flash_attention.flash_attention_padded(
+        q, q, q, attend=lambda *a, **kw: calls.append(kw) or a[0])
+    assert out is q and calls == [{"causal": True}]   # no copy, no scale
