@@ -6,21 +6,33 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the six kernels from ``src/repro_torch/kernels/csrc``,
+2. build   - build the seven kernels from ``src/repro_torch/kernels/csrc``,
              one ``nvcc`` per source, started together; print each
              kernel's registers, spills and shared memory;
-3. kernel  - hold seg_fanin against its plain PyTorch version on the card
-             at the batch shapes (F = 24, 256, 1024 slots, rows = cells x 8)
-             plus ragged layouts, ties, masked slots and a fully masked
-             segment: bit equality;
-4. timing  - seg_fanin at the N=1025 shape (384 rows x 1024 slots) beside
-             its bound and the plain version, and at N=257's (2048 x 256)
-             and R=3's (1536 x 24) beside theirs;
+3. kernel  - hold the fan-in kernels against their plain PyTorch version
+             on the card, bit for bit: the baseline (seg_fanin.cu) and the
+             sm90 kernel's per-slot entry (``seg_fanin_rows``) on the same
+             inputs, and its grouped entry (``FaninGroups``, the main
+             path's) on the step's own layout; the batch shapes (F = 24,
+             256, 1024 slots, rows = cells x 8) with the main path's
+             groups and a ragged layout, Paxos's segments of 1, one
+             segment of 1024, padded groups of size 0 (with and without a
+             tail), ties, masked slots and a fully masked segment; one
+             launch a call, ``launches_sm90`` moving for the sm90 kernel;
+4. timing  - the three at each batch grid's shape (384 x 1024, 2048 x 256,
+             1536 x 24) on the same inputs: device ms a launch (200 launches
+             captured once in a CUDA graph and replayed: the replay's
+             output equals an eager launch's), host-launched ms a call (200
+             calls from Python), each entry's bound, the plain version, and
+             an empty kernel's graph-replay time, the floor of a launch;
 5. main    - ``scale/batch/N=1025/R=32``, ``N=257/R=16`` and
              ``replicates/R=3`` at their full grids through
              ``repro_torch.experiments.runner.run_scenarios`` on cuda; every
-             scan step launches seg_fanin once, and R=3's mean throughput
-             must sit inside its ``benchmarks/reference_bounds.json`` window;
+             scan step launches the sm90 fan-in once (``launches_sm90 ==
+             scan_steps``), and R=3's mean throughput must sit inside its
+             ``benchmarks/reference_bounds.json`` window; a quick N=1025
+             run under ``torch.profiler`` counts the device kernels a scan
+             step;
 6. check   - R=3 in quick mode: kernel run == plain-version run on the card
              (bit-identical), a rerun is bit-identical, and the card agrees
              with the CPU within the parity tolerance;
@@ -118,8 +130,9 @@ HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_S = 67e12          # H100 SXM f32 peak outside the tensor cores
 BF16_OPS_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 TF32_OPS_S = 495e12        # H100 SXM TF32 dense tensor-core peak
-KERNELS = ["seg_fanin", "flash_attention", "flash_attention_sm90",
-           "pig_aggregate", "ssm_scan", "ssm_scan_sm90"]
+KERNELS = ["seg_fanin", "seg_fanin_sm90", "flash_attention",
+           "flash_attention_sm90", "pig_aggregate", "ssm_scan",
+           "ssm_scan_sm90"]
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
@@ -244,32 +257,6 @@ def layouts(F):
     return [(f"R={r}", sizes), ("ragged", ragged)]
 
 
-def fanin_case(sizes, cells, B, device, seed):
-    """Inputs of one fan-in call in the kernel's row layout, with ties
-    (values on a 2**-8 grid), ~10% masked slots and the last segment fully
-    masked."""
-    import torch
-    g = torch.Generator(device="cpu").manual_seed(seed)
-    F, G = sum(sizes), len(sizes)
-    seg = torch.repeat_interleave(torch.arange(G), torch.tensor(sizes))
-    R = cells * B
-    vals = 1.0 + torch.floor(torch.rand(R, F, generator=g) * 256) / 256
-    vals[torch.rand(R, F, generator=g) < 0.1] = math.inf
-    vals[:, seg == G - 1] = math.inf
-    coef = (torch.rand(R, G, generator=g) * 1e-3)[:, seg]
-    kcap = torch.floor(torch.rand(cells, G, generator=g)
-                       * torch.tensor(sizes, dtype=torch.float32))[:, seg]
-    scal = torch.stack([-0.05 - 0.9 * torch.rand(R, generator=g),
-                        3e-4 * torch.rand(R, generator=g),
-                        2e-5 * torch.ones(R),
-                        torch.ones(R)], dim=1)
-    to = dict(device=device)
-    return (vals.to(**to).contiguous(), coef.to(**to).contiguous(),
-            seg.to(torch.int32).expand(cells, F).contiguous().to(**to),
-            kcap.to(torch.int32).contiguous().to(**to),
-            scal.to(**to).contiguous(), B)
-
-
 def max_abs_err(a, b):
     import torch
     same_inf = torch.equal(torch.isinf(a), torch.isinf(b)) and torch.equal(
@@ -279,33 +266,119 @@ def max_abs_err(a, b):
     return err if same_inf else math.inf
 
 
+def groups_case(sizes, pad, F, cells, B, device, seed):
+    """The grouped entry's inputs for one step, in the step loop's layout:
+    ``sizes`` real groups then ``pad`` groups of size 0 (a mixed grid's
+    padding: gstart at the end of the real slots, the tail's slots in the
+    last group); arrivals on a 2**-8 grid (ties), ~10% masked slots, the
+    first segment fully masked (where there are two or more), B_r of
+    either sign, caps in [0, size)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    G = len(sizes) + pad
+    sz = torch.tensor(list(sizes) + [0] * pad)
+    gstart = torch.cumsum(sz, 0) - sz
+    grp = torch.full((F,), G - 1)
+    grp[:int(sz.sum())] = torch.repeat_interleave(torch.arange(G), sz)
+    arr = 1.0 + torch.floor(torch.rand(cells, B, F, generator=g) * 256) / 256
+    mask = torch.rand(cells, B, F, generator=g) >= 0.1
+    if len(sizes) > 1:
+        mask[:, :, :sizes[0]] = False
+    B_r = (torch.rand(cells, B, G, generator=g) * 2 - 1) * 1e-3
+    kg = torch.floor(torch.rand(cells, G, generator=g)
+                     * torch.clamp_min(sz, 1)).to(torch.int32)
+    rm1 = -0.05 - 0.9 * torch.rand(cells, generator=g)
+    md1 = 3e-4 * torch.rand(cells, generator=g)
+    c = 2e-5 * torch.ones(cells)
+    L1 = 1.0 + 1e-3 * torch.rand(cells, B, generator=g)
+    rep = lambda t: t.to(torch.int32).expand(cells, -1).contiguous()
+    to = lambda t: t.contiguous().to(device)
+    layout = tuple(to(rep(t)) for t in (grp, gstart, sz)) + (to(kg),)
+    step = tuple(to(t) for t in (arr, mask, B_r, rm1, md1, c, L1))
+    return layout, step
+
+
+def rows_of(layout, step):
+    """The per-slot entry's inputs for the same step: vals = arr_back
+    masked to +inf, coef = B_r[grp], segid = grp, kcap = kg[grp], scal rows
+    [rho - 1, md1, c_repl, L1]."""
+    import torch
+    grp, gstart, sz, kg = layout
+    arr, mask, B_r, rm1, md1, c, L1 = step
+    C, B, F = arr.shape
+    g64 = grp.long()
+    vals = torch.where(mask, arr, torch.inf).reshape(C * B, F)
+    coef = torch.gather(B_r, 2, g64[:, None, :].expand(C, B, F))
+    kcap = torch.gather(kg.long(), 1, g64).to(torch.int32)
+    per_row = lambda x: x[:, None].expand(C, B).reshape(-1)
+    scal = torch.stack((per_row(rm1), per_row(md1), per_row(c),
+                        L1.reshape(-1)), dim=1)
+    return (vals.contiguous(), coef.reshape(C * B, F).contiguous(),
+            grp.contiguous(), kcap.contiguous(), scal.contiguous(), B)
+
+
+def fanin_cases():
+    """(F, name, real group sizes, padded groups, cells) of phase 3: the
+    main path's groups and a ragged layout at each of its widths, Paxos's
+    segments of 1, one segment of 1024 (PigPaxos at R=1) and padded groups
+    of size 0, with and without a tail of slots past the last group."""
+    cases = [(F, name, sizes, 0, cells)
+             for F, cells in ((24, 192), (256, 256), (1024, 48))
+             for name, sizes in layouts(F)]
+    r3 = layouts(24)[0][1]
+    return cases + [
+        (24, "paxos", [1] * 24, 0, 192), (1024, "paxos", [1] * 1024, 0, 48),
+        (1024, "R=1", [1024], 0, 48), (24, "R=3 of R=4", r3, 1, 192),
+        (24, "20+tail", [7, 7, 6], 2, 192),
+        (1024, "31 of 32", [32] * 31, 1, 48)]
+
+
 def check_kernel(device):
+    """Phase 3: both fan-in kernels against the plain version on the card,
+    bit for bit: the baseline and the sm90 kernel's per-slot entry on every
+    case's per-slot inputs, the sm90 grouped entry on its own; one launch a
+    call, ``launches_sm90`` moving only for the sm90 kernel."""
     import torch
     from repro_torch.kernels import segfanin
-    from repro_torch.kernels.ref import seg_fanin_rows_ref
+    from repro_torch.kernels.ref import (seg_fanin_groups_ref,
+                                         seg_fanin_rows_ref)
     worst = 0.0
-    for F, cells in ((24, 192), (256, 256), (1024, 48)):
-        for name, sizes in layouts(F):
-            args = fanin_case(sizes, cells, 8, device, seed=F + len(sizes))
-            before = segfanin.launches
-            got = segfanin.seg_fanin_rows(*args)
-            launched = segfanin.launches - before
-            want = seg_fanin_rows_ref(*args)
+    for F, name, sizes, pad, cells in fanin_cases():
+        layout, step = groups_case(sizes, pad, F, cells, 8, device,
+                                   seed=F + len(sizes) + pad)
+        rows = rows_of(layout, step)
+        want_rows = seg_fanin_rows_ref(*rows)
+        want_groups = seg_fanin_groups_ref(*step[:3], layout[0], layout[1],
+                                           layout[3], *step[3:])
+        plan = segfanin.FaninGroups(*layout, 8)
+        for kernel, fn, want, sm90 in (
+                ("baseline", lambda: segfanin.seg_fanin_rows_baseline(*rows),
+                 want_rows, 0),
+                ("sm90 rows", lambda: segfanin.seg_fanin_rows(*rows),
+                 want_rows, 1),
+                ("sm90 groups", lambda: plan(*step), want_groups, 1)):
+            before = (segfanin.launches, segfanin.launches_sm90)
+            got = fn()
+            launched = (segfanin.launches - before[0],
+                        segfanin.launches_sm90 - before[1])
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             worst = max(worst, err)
-            ok = torch.equal(got, want) and launched == 1
-            log(f"kernel   F={F:5d} {name:7s} rows={cells * 8:5d} "
-                f"segments={len(sizes):3d} launches={launched} "
-                f"equal={ok} (tolerance: bit equality) max_abs_err={err}")
+            ok = same_bits(got, want) and launched == (1, sm90)
+            log(f"kernel   {kernel:11s} F={F:5d} {name:10s} "
+                f"rows={cells * 8:5d} groups={len(sizes) + pad:4d} "
+                f"launches={launched[0]} (sm90 {launched[1]}) equal={ok} "
+                f"(tolerance: bit equality) max_abs_err={err}")
             if not ok:
-                raise SystemExit(f"seg_fanin kernel != plain version at "
+                raise SystemExit(f"seg_fanin {kernel} != plain version at "
                                  f"F={F} ({name})")
     return worst
 
 
 # --------------------------------------------------------------- phase 4
 def time_ms(fn, iters, warmup=10):
+    """Host-launched ms a call: CUDA events around ``iters`` calls issued
+    from Python, so a small kernel's time is the host's launch rate."""
     import torch
     for _ in range(warmup):
         fn()
@@ -320,41 +393,113 @@ def time_ms(fn, iters, warmup=10):
     return t0.elapsed_time(t1) / iters
 
 
+def graph_ms(fn, launches=200, replays=5):
+    """Device ms a launch: ``launches`` calls captured once in a CUDA graph
+    (which checks that the call is capturable), the graph replayed with
+    CUDA events around each replay; the median replay over ``launches``.
+    Returns (ms, the last captured call's output after a replay)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(replays):
+        t0.record()
+        graph.replay()
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1) / launches)
+    return sorted(times)[replays // 2], out
+
+
+FANIN_SHAPES = (("N=1025/R=32", 1024, 48), ("N=257/R=16", 256, 256),
+                ("R=3", 24, 192))
+
+
 def time_kernel(device):
-    """seg_fanin at each batch cell's shape (rows = cells x 8): N=1025's
-    (the JSON record), N=257's and R=3's, beside each shape's bound."""
+    """Phase 4: the baseline and the sm90 kernel on the same inputs at each
+    batch grid's shape (rows = cells x 8): graph-replay device ms, host-
+    launched ms, bounds, the empty kernel's floor.  Returns N=1025's record
+    of the grouped entry (the main path's)."""
+    from repro_torch.kernels import segfanin
+    floor_ms, _ = graph_ms(lambda: segfanin.empty_launch(device))
+    log(f"timing   empty kernel, 200 launches in a CUDA graph: "
+        f"{floor_ms:.6f} ms a launch (the floor)")
     out = None
-    for name, F, cells in (("N=1025/R=32", 1024, 48), ("N=257/R=16", 256, 256),
-                           ("R=3", 24, 192)):
-        timing = time_fanin(device, name, F, cells)
+    for name, F, cells in FANIN_SHAPES:
+        timing = time_fanin(device, name, F, cells, floor_ms)
         out = out or timing
     return out
 
 
-def time_fanin(device, name, F, cells):
+def time_fanin(device, name, F, cells, floor_ms):
+    import torch
     from repro_torch.kernels import segfanin
-    from repro_torch.kernels.ref import seg_fanin_rows_ref
+    from repro_torch.kernels.ref import (seg_fanin_groups_ref,
+                                         seg_fanin_rows_ref)
     sizes = layouts(F)[0][1]
-    args = list(fanin_case(sizes, cells, 8, device, seed=7))
-    args[0][:] = args[0].clamp(max=3.0)          # no masked slots
-    R = args[0].shape[0]
-    C = args[2].shape[0]
-    ms = time_ms(lambda: segfanin.seg_fanin_rows(*args), 200)
-    plain_ms = time_ms(lambda: seg_fanin_rows_ref(*args), 20, warmup=3)
-    nbytes = 4 * (3 * R * F + 2 * C * F + 4 * R)   # read each input once,
-    # write the output once
-    ops = R * (2 * sum(s * s for s in sizes) + 9 * F)   # compares + y
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    layout, step = groups_case(sizes, 0, F, cells, 8, device, seed=7)
+    rows = rows_of(layout, step)
+    plan = segfanin.FaninGroups(*layout, 8)
+    R, G, C = cells * 8, len(sizes), cells
+    calls = {"baseline": lambda: segfanin.seg_fanin_rows_baseline(*rows),
+             "sm90 rows": lambda: segfanin.seg_fanin_rows(*rows),
+             "sm90 groups": lambda: plan(*step)}
+    # read each input once, write the output once
+    rows_bytes = 4 * (3 * R * F + 2 * C * F + 4 * R)
+    groups_bytes = (4 * R * F + R * F + 4 * R * G + 4 * C * F + 8 * C * G
+                    + 12 * C + 4 * R + 4 * R * G)
+    ops = R * (2 * sum(s * s for s in sizes) + 9 * F)  # compares + y
     ops_ms = ops / F32_OPS_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    log(f"timing   seg_fanin {name} rows={R} F={F}: kernel {ms:.6f} ms, "
-        f"plain version {plain_ms:.6f} ms, bound {bound_ms:.6f} ms "
-        f"({nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms; {ops} ops at "
-        f"67 TFLOP/s = {ops_ms:.6f} ms), kernel at "
-        f"{100 * bound_ms / ms:.2f}% of its bound; no single PyTorch call "
-        f"computes it")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    bound = {}
+    for entry, nbytes in (("rows", rows_bytes), ("groups", groups_bytes)):
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        bound[entry] = (max(bytes_ms, ops_ms),
+                        "bytes" if bytes_ms >= ops_ms else "operations")
+        log(f"timing   seg_fanin {name} rows={R} F={F} G={G}: {entry} entry "
+            f"bound {bound[entry][0]:.6f} ms ({nbytes} bytes at 3.35 TB/s "
+            f"= {bytes_ms:.6f} ms; {ops} ops at 67 TFLOP/s = "
+            f"{ops_ms:.6f} ms)")
+    res = {}
+    for kernel, fn in calls.items():
+        dev_ms, replayed = graph_ms(fn)
+        eager = fn()
+        torch.cuda.synchronize()
+        if not same_bits(replayed, eager):
+            raise SystemExit(f"seg_fanin {kernel} at {name}: the graph "
+                             f"replay's output != an eager launch's")
+        host_ms = time_ms(fn, 200)
+        b = bound["groups" if kernel == "sm90 groups" else "rows"][0]
+        res[kernel] = (dev_ms, host_ms)
+        log(f"timing   seg_fanin {kernel:11s} {name}: device {dev_ms:.6f} ms "
+            f"a launch (200 in a CUDA graph; replay == eager: True), "
+            f"{100 * b / dev_ms:.2f}% of its bound, "
+            f"{dev_ms / floor_ms:.2f}x the empty kernel; host-launched "
+            f"{host_ms:.6f} ms a call (200 calls from Python)")
+    plain_rows = time_ms(lambda: seg_fanin_rows_ref(*rows), 20, warmup=3)
+    plain_groups = time_ms(lambda: seg_fanin_groups_ref(
+        *step[:3], layout[0], layout[1], layout[3], *step[3:]), 20, warmup=3)
+    log(f"timing   seg_fanin {name}: plain version {plain_rows:.6f} ms "
+        f"(per slot), {plain_groups:.6f} ms (grouped); baseline / sm90 "
+        f"groups device time {res['baseline'][0] / res['sm90 groups'][0]:.2f}"
+        f"x; no single PyTorch call computes it")
+    dev_ms, host_ms = res["sm90 groups"]
+    return {"ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_groups,
+            "bound_ms": bound["groups"][0], "bound_by": bound["groups"][1],
+            "baseline_ms": res["baseline"][0],
+            "baseline_host_ms": res["baseline"][1],
+            "floor_ms": floor_ms}
 
 
 # --------------------------------------------------------------- phase 5
@@ -367,12 +512,12 @@ def run_main_path(device):
     total = 0
     for name in MAIN:
         (sc,) = registry.select(name)
-        segfanin.launches = 0
+        segfanin.launches = segfanin.launches_sm90 = 0
         t0 = time.perf_counter()
         art = runner.run_scenarios([sc], quick=False, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = segfanin.launches
+        launches, sm90 = segfanin.launches, segfanin.launches_sm90
         sa = art["scenarios"][0]
         run, units = sa["run"], sa["units"]
         bad = [u for u in units if u["exhausted"] or not all(
@@ -382,12 +527,13 @@ def run_main_path(device):
         if bad:
             raise SystemExit(f"{name}: {len(bad)} cells exhausted or with "
                              f"non-finite/zero results, e.g. {bad[0]}")
-        if launches != run["scan_steps"]:
-            raise SystemExit(f"{name}: {launches} kernel launches for "
-                             f"{run['scan_steps']} scan steps")
+        if not launches == sm90 == run["scan_steps"]:
+            raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
+                             f"of seg_fanin_sm90) for {run['scan_steps']} "
+                             f"scan steps")
         tput = sa["summary"]["throughput"]["mean"]
         log(f"main     {name:28s} cells={run['cells']:4d} "
-            f"scan_steps={run['scan_steps']:5d} launches={launches:5d} "
+            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:5d} "
             f"wall={wall:.3f}s cells/s={run['cells'] / wall:.2f} "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
             f"tput_mean={tput} device={run['device']}")
@@ -400,6 +546,23 @@ def run_main_path(device):
                 f"[{lo}, {hi}]")
         total += launches
     return total
+
+
+def launches_per_step(device):
+    """Phase 5: device kernels a scan step of a quick N=1025 run, counted by
+    ``torch.profiler`` through the trace module (every kernel of the run,
+    set-up and summary included, over its scan steps)."""
+    from repro_torch.experiments import registry, trace
+    (sc,) = registry.select(MAIN[0])
+    r = trace.trace_scenario(sc, True, device)
+    per_step = r["kernel_launches"] / r["scan_steps"]
+    log(f"main     {sc.name} quick (trace): cells={r['cells']} "
+        f"scan_steps={r['scan_steps']} device kernels={r['kernel_launches']} "
+        f"= {per_step:.2f} a scan step; idle share "
+        f"{r['device_idle_share']:.6f}; ms/step {r['ms_per_step']:.4f}")
+    for kname, count, ms in r["top_kernels"][:6]:
+        log(f"main         {ms:10.3f} ms {count:7d}x  {kname[:90]}")
+    return per_step
 
 
 # --------------------------------------------------------------- phase 6
@@ -464,6 +627,12 @@ def build_kernels():
             elif ("registers" in line or "smem" in line or "spill" in line
                   or "serialized" in line):
                 log(f"build    {entry} ptxas: {line.strip()}")
+    from repro_torch.kernels import segfanin
+    log("build    seg_fanin_sm90 (fanin_rows_kernel, fanin_groups_kernel) "
+        "dynamic shared memory, rows and warps per block: "
+        + ", ".join(f"F {F}: {segfanin.sm90_smem_bytes(F)} B, "
+                    f"{segfanin.geometry(F)[0]} x {segfanin.geometry(F)[1]}"
+                    for F in (24, 256, 1024, 2048)))
     log("build    flash_attention_kernel dynamic shared memory per block "
         "(3 x 64 x (Dh+1) + 64 x 64 f32, as its launcher requests): "
         + ", ".join(f"Dh {dh}: {(3 * 64 * (dh + 1) + 64 * 64) * 4} B"
@@ -1525,6 +1694,7 @@ def main() -> int:
     err = check_kernel(device)
     timing = time_kernel(device)
     launches = run_main_path(device)
+    launches_per_step(device)
     cross_check(device)
 
     flash_err = check_flash(device)
@@ -1550,7 +1720,7 @@ def main() -> int:
     check_smoke_serve(device, RWKV_ARCH, "auto", ssm_scan, RWKV_SMOKE_LOGIT_TOL)
 
     record = {"name": "seg_fanin", "route": "cuda",
-              "source": "src/repro_torch/kernels/csrc/seg_fanin.cu",
+              "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",
               "replaces": "src/repro/kernels/segfanin.py:46",
               "launches": launches, "max_abs_err": err, **timing,
               "library_ms": None}

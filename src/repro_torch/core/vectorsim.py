@@ -38,7 +38,7 @@ import torch
 from .. import prng
 from ..convert import cells_from_numpy
 from ..device import resolve_device
-from ..kernels import ops, ref
+from ..kernels import ops
 from .messages import HEADER_BYTES, CostModel
 from .pig import partition_followers, required_per_group
 from .quorums import fast_quorum, majority
@@ -405,9 +405,10 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 
     ``cell`` holds the stacked per-cell tensors (``cells_from_numpy``);
     every quantity below carries the cell axis C first.  ``kernel``
-    selects the reply fan-in: "auto" goes through ``kernels.ops``
-    (the CUDA kernel on the card, the plain version on the CPU); "torch"
-    forces the plain version, for whole-run comparisons on the card.
+    selects the reply fan-in: "auto" goes through
+    ``kernels.ops.seg_fanin_groups`` (the CUDA kernel on the card, the
+    plain version on the CPU); "torch" forces the plain version, for
+    whole-run comparisons on the card.
     """
     f32 = torch.float32
     inf = torch.inf
@@ -454,13 +455,13 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     valid_relay = valid & torch.gather(grp_mask, 1, grp)
     relay_work_f = torch.gather(relay_work, 1, grp)
     relay_load_f = 2.0 * torch.gather(szf, 1, grp)
-    # the fan-in's order-statistic cap (thresh - 2) per slot, and the flat
-    # slot each group's order statistic is read back from
+    # the fan-in's order-statistic cap (thresh - 2) per group; the fan-in
+    # reads each group's result at its slot clamp(gstart, 0, F - 1)
     kg = torch.clamp_min(thresh - 2, 0)
     kgf_c = kg.to(f32)[:, None, :]
-    kcap = torch.gather(kg, 1, grp)
-    seg32, kcap32 = grp.to(torch.int32), kcap.to(torch.int32)
-    gread = torch.clamp(gstart, 0, F - 1)[:, None, :].expand(C, B, G)
+    fanin = ops.seg_fanin_groups(grp, gstart, sizes, kg, B,
+                                 plain=kernel == "torch")
+    c_repl_dense = c_repl.contiguous()     # a column of the costs
     flush_at = (thresh >= 2)[:, None, :]
     grp_mask_c = grp_mask[:, None, :]
 
@@ -554,18 +555,12 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
         doneP = arr_p + W_p + c_rel_c + c_repl_c
         arr_back = doneP + lat0_c + e_pr
 
-        # relay FIFO over its reply fan-in: the seg_fanin kernel emits each
-        # slot's capped segment max (the thresh-2 order statistic)
+        # relay FIFO over its reply fan-in: the fan-in (one seg_fanin_sm90
+        # launch on the card) masks the replies, ranks them in their group
+        # and emits each group's capped segment max (the thresh-2 order
+        # statistic)
         relay_free0 = h + npeers_c.to(f32) * c_rel_c
-        fan_args = (torch.where(peer_mask, arr_back, inf),
-                    torch.gather(B_r, 2, grp_b))
-        if kernel == "torch":
-            m = ref.seg_fanin_ref(*fan_args, grp, kcap, rho - 1.0, md1,
-                                  c_repl, L1)
-        else:
-            m = ops.seg_fanin(*fan_args, seg32, kcap32, rho - 1.0, md1,
-                              c_repl, L1)
-        mg = torch.gather(m, 2, gread)
+        mg = fanin(arr_back, peer_mask, B_r, rho - 1.0, md1, c_repl_dense, L1)
         done_g = (kgf_c + 1.0) * c_repl_c + torch.maximum(relay_free0, mg)
         flush = torch.where(flush_at, done_g, relay_free0)
         agg_sent = flush + c_agg_c

@@ -22,10 +22,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# each kernel's own flags: the bit equality of seg_fanin and pig_aggregate
+# each kernel's own flags: the bit equality of the fan-in kernels and
+# pig_aggregate
 # with their plain versions needs every multiply and add rounded on its own
 # (no FMA contraction)
-KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",), "flash_attention": (),
+KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",),
+                "seg_fanin_sm90": ("-fmad=false",), "flash_attention": (),
                 "flash_attention_sm90": (),
                 "pig_aggregate": ("-fmad=false",), "ssm_scan": (),
                 "ssm_scan_sm90": ()}

@@ -12,7 +12,7 @@ from . import ssm_scan as _ssm_scan
 from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
-from .segfanin import seg_fanin_rows
+from .segfanin import FaninGroups, seg_fanin_rows
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -94,3 +94,17 @@ def seg_fanin(vals: torch.Tensor, coef: torch.Tensor, segid: torch.Tensor,
         kcap.to(torch.int32).expand(lead + (F,)).reshape(C, F).contiguous(),
         scal.contiguous(), B)
     return out.reshape(vals.shape)
+
+
+def seg_fanin_groups(grp: torch.Tensor, gstart: torch.Tensor,
+                     sizes: torch.Tensor, kg: torch.Tensor, B: int,
+                     plain: bool = False) -> FaninGroups:
+    """The step loop's fan-in, prepared once per grid: grp (C, F) slot ->
+    group, gstart/sizes (C, G) the contiguous group layout, kg (C, G) each
+    group's order-statistic cap, B burst rows a cell.  The returned callable
+    takes one step's (arr_back, peer_mask, B_r, rho - 1, md1, c_repl, L1)
+    and returns mg (C, B, G), each group's capped segment max read at its
+    slot clamp(gstart, 0, F - 1): on the card one launch of
+    ``csrc/seg_fanin_sm90.cu``, on the CPU (or with ``plain``) the plain
+    version ``ref.seg_fanin_groups_ref``."""
+    return FaninGroups(grp, gstart, sizes, kg, B, plain=plain)

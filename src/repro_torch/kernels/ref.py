@@ -139,6 +139,26 @@ def seg_fanin_rows_ref(vals, coef, segid, kcap, scal, rows_per_cell: int):
     return out.reshape(vals.shape)
 
 
+def seg_fanin_groups_ref(arr_back, peer_mask, B_r, grp, gstart, kg, vcoef,
+                         md1, c, anchor):
+    """The step loop's grouped fan-in, the plain version: the per-slot
+    fan-in of ``vals = where(peer_mask, arr_back, +inf)`` with
+    ``coef = B_r[grp]``, segment ids grp and caps ``kg[grp]``, read at each
+    group's slot clamp(gstart, 0, F - 1) (as ``repro.core.vectorsim``
+    reads it).  arr_back (C, B, F) f32, peer_mask (C, B, F) bool, B_r
+    (C, B, G) f32, grp (C, F), gstart and kg (C, G); vcoef/md1/c (C,) or
+    scalars, anchor (C, B).  Returns (C, B, G)."""
+    C, B, F = arr_back.shape
+    G = gstart.shape[-1]
+    grp = grp.to(torch.int64)
+    vals = torch.where(peer_mask, arr_back, torch.inf)
+    coef = torch.gather(B_r, 2, grp[:, None, :].expand(C, B, F))
+    kcap = torch.gather(kg.to(torch.int64), 1, grp)
+    m = seg_fanin_ref(vals, coef, grp, kcap, vcoef, md1, c, anchor)
+    gread = torch.clamp(gstart.to(torch.int64), 0, F - 1)
+    return torch.gather(m, 2, gread[:, None, :].expand(C, B, G))
+
+
 def pig_aggregate_ref(shards: torch.Tensor, scales: torch.Tensor,
                       block: int = 1024) -> torch.Tensor:
     """The relay's dequantize-and-sum, the plain version (port of

@@ -95,12 +95,156 @@ def test_whole_run_through_the_kernel_equals_the_plain_run(cuda):
     """One launch per scan step, and the same results bit for bit."""
     kw = dict(pig=PigConfig(n_groups=3, prc=1), clients=(10, 20),
               seeds=(0, 1), duration=0.1, warmup=0.05, device=cuda)
-    segfanin.launches = 0
+    segfanin.launches = segfanin.launches_sm90 = 0
     info: dict = {}
     a = vectorsim.simulate_scenario("pigpaxos", 25, info=info, **kw)
-    assert segfanin.launches == info["scan_steps"] > 0
+    assert segfanin.launches == segfanin.launches_sm90 \
+        == info["scan_steps"] > 0
     b = vectorsim.simulate_scenario("pigpaxos", 25, kernel="torch", **kw)
     assert a == b
+
+
+# (name, real group sizes, padded groups of size 0, slots F): the main
+# path's groups, Paxos's segments of 1, PigPaxos at R=1, a ragged layout
+# whose segments cross 32-slot windows, and a mixed grid's padding
+SM90_LAYOUTS = [
+    ("R=3", [8, 8, 8], 0, 24), ("N=257/R=16", [16] * 16, 0, 256),
+    ("N=1025/R=32", [32] * 32, 0, 1024), ("paxos", [1] * 24, 0, 24),
+    ("R=1", [1024], 0, 1024),
+    ("ragged", [5, 37, 12, 1, 33, 40, 2, 30], 0, 160),
+    ("size-0 group", [8, 8, 8], 1, 24), ("tail", [7, 7, 6], 2, 24)]
+
+
+def _groups(seed, sizes, pad, F, C, B, device):
+    """The grouped entry's (layout, step) inputs: ties, ~10% masked slots,
+    the first segment fully masked where there are two or more."""
+    rng = np.random.default_rng(seed)
+    G = len(sizes) + pad
+    sz = np.array(list(sizes) + [0] * pad)
+    gstart = np.cumsum(sz) - sz
+    grp = np.full(F, G - 1)
+    grp[:sz.sum()] = np.repeat(np.arange(G), sz)
+    mask = rng.uniform(size=(C, B, F)) >= 0.1
+    if len(sizes) > 1:
+        mask[:, :, :sizes[0]] = False
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    i = lambda a: torch.tensor(np.broadcast_to(a, (C, len(a))),
+                               dtype=torch.int32, device=device)
+    layout = (i(grp), i(gstart), i(sz),
+              i(np.floor(rng.uniform(size=G) * np.maximum(sz, 1))))
+    step = (f(1.0 + np.floor(rng.uniform(0, 256, (C, B, F))) / 256),
+            torch.tensor(mask, device=device),
+            f(rng.uniform(-1e-3, 1e-3, (C, B, G))),
+            f(-0.05 - 0.9 * rng.uniform(size=C)),
+            f(3e-4 * rng.uniform(size=C)), f(np.full(C, 2e-5)),
+            f(1.0 + 1e-3 * rng.uniform(size=(C, B))))
+    return layout, step
+
+
+def _rows(layout, step):
+    """The same step in the per-slot entry's layout."""
+    grp, _, _, kg = layout
+    arr, mask, B_r, rm1, md1, c, L1 = step
+    C, B, F = arr.shape
+    g = grp.long()
+    per_row = lambda x: x[:, None].expand(C, B).reshape(-1)
+    return (torch.where(mask, arr, torch.inf).reshape(C * B, F),
+            torch.gather(B_r, 2, g[:, None, :].expand(C, B, F))
+            .reshape(C * B, F),
+            grp, torch.gather(kg.long(), 1, g).int(),
+            torch.stack((per_row(rm1), per_row(md1), per_row(c),
+                         L1.reshape(-1)), 1).contiguous(), B)
+
+
+def _want_groups(layout, step):
+    return ref.seg_fanin_groups_ref(*step[:3], layout[0], layout[1],
+                                    layout[3], *step[3:])
+
+
+@pytest.mark.parametrize("name,sizes,pad,F", SM90_LAYOUTS,
+                         ids=[x[0] for x in SM90_LAYOUTS])
+def test_sm90_entries_match_plain_version(cuda, name, sizes, pad, F):
+    layout, step = _groups(F + len(sizes), sizes, pad, F, 3, 8, cuda)
+    rows = _rows(layout, step)
+    plan = segfanin.FaninGroups(*layout, 8)
+    before = (segfanin.launches, segfanin.launches_sm90)
+    got = plan(*step)
+    got_rows = segfanin.seg_fanin_rows(*rows)
+    torch.cuda.synchronize()
+    assert (segfanin.launches, segfanin.launches_sm90) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(got, _want_groups(layout, step))
+    assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
+    assert torch.equal(segfanin.seg_fanin_rows_baseline(*rows), got_rows)
+
+
+def test_sm90_graph_replay_equals_eager_launch(cuda):
+    layout, step = _groups(7, [32] * 32, 0, 1024, 6, 8, cuda)
+    plan = segfanin.FaninGroups(*layout, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        plan(*step)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = plan(*step)
+    graph.replay()
+    eager = plan(*step)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert torch.equal(eager, _want_groups(layout, step))
+
+
+def test_sm90_wrappers_check_their_inputs(cuda):
+    layout, step = _groups(3, [8, 8, 8], 1, 24, 2, 8, cuda)
+    plan = segfanin.FaninGroups(*layout, 8)
+    assert plan(*step).shape == (2, 8, 4)
+
+    def call(i, t):
+        return plan(*step[:i], t, *step[i + 1:])
+    with pytest.raises(TypeError, match="arr_back"):
+        call(0, step[0].double())
+    with pytest.raises(TypeError, match="peer_mask"):
+        call(1, step[1].float())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(0, step[0].transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError, match="shape"):
+        call(2, step[2][:, :, :3].contiguous())
+    with pytest.raises(ValueError, match="on cpu"):
+        call(6, step[6].cpu())
+    grp, gstart, sz, kg = layout
+    with pytest.raises(TypeError, match="integer"):
+        segfanin.FaninGroups(grp.float(), gstart, sz, kg, 8)
+    bad = gstart.clone()
+    bad[:, 2] += 1
+    with pytest.raises(ValueError, match="not contiguous"):
+        segfanin.FaninGroups(grp, bad, sz, kg, 8)
+    wide = torch.zeros(1, 4096, dtype=torch.int32, device=cuda)
+    one = torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="2048"):
+        segfanin.FaninGroups(wide, one, one + 4096, one, 8)
+    rows = _rows(*_groups(4, [8, 8, 8], 0, 24, 2, 8, cuda))
+    with pytest.raises(TypeError, match="kcap"):
+        segfanin.seg_fanin_rows(*rows[:3], rows[3].long(), *rows[4:])
+
+
+def test_mixed_grid_launches_sm90_once_a_step(cuda):
+    """PigPaxos R=3 beside R=4 at N=25: the R=3 cells carry a padded group
+    of size 0.  One sm90 launch a scan step, and the plain run's results
+    bit for bit."""
+    cfgs = [vectorsim.build_config("pigpaxos", 25,
+                                   pig=PigConfig(n_groups=r, prc=1))
+            for r in (3, 4)]
+    grid = [(ci, k, s) for ci in (0, 1) for k in (10, 30) for s in (0, 1)]
+    segfanin.launches = segfanin.launches_sm90 = 0
+    a = vectorsim.simulate_grid(cfgs, grid, 0.1, 0.05, device=cuda)
+    assert segfanin.launches == segfanin.launches_sm90 \
+        == a["scan_steps"] > 0
+    b = vectorsim.simulate_grid(cfgs, grid, 0.1, 0.05, kernel="torch",
+                                device=cuda)
+    for k, v in a.items():
+        assert np.array_equal(v, b[k], equal_nan=True), k
 
 
 # ------------------------------------------------------------------ flash
