@@ -17,8 +17,10 @@ Phases, in order; any failure exits non-zero:
              256, 1024 slots, rows = cells x 8) with the main path's
              groups and a ragged layout, Paxos's segments of 1, one
              segment of 1024, padded groups of size 0 (with and without a
-             tail), ties, masked slots and a fully masked segment; one
-             launch a call, ``launches_sm90`` moving for the sm90 kernel;
+             tail), the WAN scenarios' per-region groups (F = 48 with
+             16/16/16, F = 100 with 34/33/33, crossing 32-slot windows),
+             ties, masked slots and a fully masked segment; one launch a
+             call, ``launches_sm90`` moving for the sm90 kernel;
 4. timing  - the three at each batch grid's shape (384 x 1024, 2048 x 256,
              1536 x 24) on the same inputs: device ms a launch (200 launches
              captured once in a CUDA graph and replayed: the replay's
@@ -36,6 +38,24 @@ Phases, in order; any failure exits non-zero:
 6. check   - R=3 in quick mode: kernel run == plain-version run on the card
              (bit-identical), a rerun is bit-identical, and the card agrees
              with the CPU within the parity tolerance;
+17. branches - (run after phase 6, with the batch path) the 14 scenarios of
+             the group kernel's other branches (``wan/*``, ``avail/*``,
+             ``batching/*``, ``obs/*``, ``reads/*``) at their full grids
+             through ``run_scenarios`` on cuda: ``launches ==
+             launches_sm90 == scan_steps`` for each, no cell exhausted or
+             non-finite, the gate's speedup floors on the port's own pairs
+             (``batching/paxos/m=8/batch`` >= 2x ``m=1/batch``,
+             ``reads/paxos/lease/r=0.9/batch`` >= 2x ``log/r=0.9/batch``)
+             and ``obs/pigpaxos/backlog/batch``'s quick-mode mean
+             throughput inside its ``reference_bounds.json`` window; per
+             scenario the cells, scan steps, launches, wall, cells/s,
+             ms/step, mean throughput and the timeline/obs/rw shapes;
+18. bcheck - one quick scenario of each branch (batching m=8, wan/N=25,
+             avail/relay, reads lease, obs): the card run == a rerun ==
+             the plain fan-in's run on the card, bit for bit, extras
+             included, and the card agrees with the CPU within phase 6's
+             tolerance (extras: timeline buckets and read/write counts
+             within one, backlog and read/write means rel 1e-5).
 7. flash   - the sm90 flash_attention kernel against its plain version on
              the card in bf16 at granite-8b's prefill shape, granite at its
              max_seq_len, a ragged S, gemma-7b's head dim 256 and a
@@ -136,6 +156,16 @@ KERNELS = ["seg_fanin", "seg_fanin_sm90", "flash_attention",
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
+# the group kernel's other branches (phase 17) and one quick scenario of
+# each (phase 18)
+BRANCH_FAMILIES = "wan,avail,batching,obs,reads"
+BRANCH_CHECKS = ("batching/paxos/m=8/batch", "wan/N=25/batch",
+                 "avail/relay/N=25/batch", "reads/paxos/lease/r=0.9/batch",
+                 "obs/pigpaxos/backlog/batch")
+OBS = "obs/pigpaxos/backlog/batch"
+SPEEDUPS = (("batching/paxos/m=8/batch", "batching/paxos/m=1/batch"),
+            ("reads/paxos/lease/r=0.9/batch", "reads/paxos/log/r=0.9/batch"))
+SPEEDUP_MIN = 2.0          # benchmarks/reference_bounds.json "speedup"
 # the CPU parity tolerance for damped cells (tests/test_torch_vectorsim.py):
 # counts within one request at the window edges, latency percentiles to
 # rel 1e-5, message loads to abs 1e-6
@@ -330,7 +360,9 @@ def fanin_cases():
         (24, "paxos", [1] * 24, 0, 192), (1024, "paxos", [1] * 1024, 0, 48),
         (1024, "R=1", [1024], 0, 48), (24, "R=3 of R=4", r3, 1, 192),
         (24, "20+tail", [7, 7, 6], 2, 192),
-        (1024, "31 of 32", [32] * 31, 1, 48)]
+        (1024, "31 of 32", [32] * 31, 1, 48),
+        (48, "wan/N=49", [16, 16, 16], 0, 32),
+        (100, "wan/N=101", [34, 33, 33], 0, 32)]
 
 
 def check_kernel(device):
@@ -600,6 +632,166 @@ def cross_check(device):
             or worst["lat_rel"] > LAT_REL or worst["msg_abs"] > MSG_ABS):
         raise SystemExit(f"{CHECK}: cuda and cpu disagree beyond the parity "
                          f"tolerance: {worst}")
+
+
+# -------------------------------------------------------------- phase 17
+def extras_shape(units):
+    """The units' timeline / obs / rw records as shapes (cells x length)."""
+    out = []
+    for key, length in (("timeline", lambda e: len(e["counts"])),
+                        ("obs", lambda e: len(e["leader_backlog"]["mean_ms"])),
+                        ("rw", len)):
+        got = [length(u["extras"][key]) for u in units
+               if key in u.get("extras", {})]
+        out.append(f"{key}={len(got)}x{max(got)}" if got else f"{key}=-")
+    return " ".join(out)
+
+
+def run_branches(device):
+    """Phase 17: the 14 scenarios of the other branches at full grids."""
+    import torch
+    from repro_torch.experiments import registry, runner
+    from repro_torch.kernels import segfanin
+    with open(os.path.join(ROOT, "benchmarks", "reference_bounds.json")) as f:
+        bounds = json.load(f)["bounds"]
+    scenarios = registry.select(BRANCH_FAMILIES)
+    if len(scenarios) != 14:
+        raise SystemExit(f"{BRANCH_FAMILIES}: {len(scenarios)} scenarios, "
+                         f"expected 14")
+    total, tput = 0, {}
+    for sc in scenarios:
+        segfanin.launches = segfanin.launches_sm90 = 0
+        t0 = time.perf_counter()
+        art = runner.run_scenarios([sc], quick=False, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, sm90 = segfanin.launches, segfanin.launches_sm90
+        sa = art["scenarios"][0]
+        run, units = sa["run"], sa["units"]
+        bad = [u for u in units if u["exhausted"] or not all(
+            u[k] is not None and u[k] > 0 for k in
+            ("throughput", "mean_ms", "median_ms", "p25_ms", "p75_ms",
+             "p99_ms"))]
+        if bad:
+            raise SystemExit(f"{sc.name}: {len(bad)} cells exhausted or "
+                             f"with non-finite/zero results, e.g. {bad[0]}")
+        if not launches == sm90 == run["scan_steps"]:
+            raise SystemExit(f"{sc.name}: {launches} fan-in launches ({sm90} "
+                             f"of seg_fanin_sm90) for {run['scan_steps']} "
+                             f"scan steps")
+        tput[sc.name] = sa["summary"]["throughput"]["mean"]
+        log(f"branches {sc.name:30s} cells={run['cells']:3d} "
+            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:5d} "
+            f"wall={wall:.3f}s cells/s={run['cells'] / wall:.2f} "
+            f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
+            f"tput_mean={tput[sc.name]} {extras_shape(units)}")
+        total += launches
+    for fast, slow in SPEEDUPS:
+        ratio = tput[fast] / tput[slow]
+        log(f"branches {fast} / {slow}: {ratio:.4f}x (floor "
+            f"{SPEEDUP_MIN}x)")
+        if ratio < SPEEDUP_MIN:
+            raise SystemExit(f"{fast}: {ratio:.4f}x {slow}, under the "
+                             f"{SPEEDUP_MIN}x floor")
+    (obs,) = registry.select(OBS)
+    art = runner.run_scenarios([obs], quick=True, device=device)
+    mean = art["scenarios"][0]["summary"]["throughput"]["mean"]
+    lo, hi = bounds[OBS]
+    log(f"branches {OBS} quick mean throughput {mean} "
+        f"{'inside' if lo <= mean <= hi else 'OUTSIDE'} [{lo}, {hi}]")
+    if not lo <= mean <= hi:
+        raise SystemExit(f"{OBS}: quick mean throughput {mean} outside "
+                         f"[{lo}, {hi}]")
+    return total
+
+
+# -------------------------------------------------------------- phase 18
+def branch_kwargs(sc, rs):
+    """``simulate_scenario``'s arguments for a resolved scenario, as the
+    runner passes them."""
+    from repro_torch.experiments.scenario import build_topology
+    plan = sc.fault_plan()
+    return dict(pig=sc.pig, topo=build_topology(sc.topo),
+                workload=sc.workload, clients=rs.clients, seeds=rs.seeds,
+                duration=rs.duration, warmup=rs.warmup,
+                leader_timeout=sc.leader_timeout,
+                masks=(plan.to_masks(sc.n, rs.warmup + rs.duration + 0.5)
+                       if plan is not None else None),
+                batch_m=(sc.batch or {}).get("max_batch", 1),
+                obs=sc.obs is not None)
+
+
+def unit_gap(x, y, worst):
+    """Fold one card unit ``x`` against its CPU unit ``y`` into ``worst``."""
+    for k in ("count", "committed"):
+        worst[k] = max(worst[k], abs(x[k] - y[k]))
+    for k in ("median_ms", "p25_ms", "p75_ms", "p99_ms"):
+        worst["lat_rel"] = max(worst["lat_rel"], abs(x[k] - y[k]) / abs(y[k]))
+    for k in ("leader_msgs_per_op", "follower_msgs_per_op"):
+        worst["msg_abs"] = max(worst["msg_abs"], abs(x[k] - y[k]))
+    if "timeline" in x:
+        worst["timeline"] = max(worst["timeline"], max(
+            abs(a - b) for a, b in zip(x["timeline"]["counts"],
+                                       y["timeline"]["counts"])))
+    if "obs" in x:
+        a, b = x["obs"]["leader_backlog"], y["obs"]["leader_backlog"]
+        worst["backlog_n"] = max(worst["backlog_n"], max(
+            abs(p - q) for p, q in zip(a["n"], b["n"])))
+        worst["backlog_rel"] = max(worst["backlog_rel"], max(
+            abs(p - q) / max(abs(q), 1e-3)
+            for p, q in zip(a["mean_ms"], b["mean_ms"])))
+    if "rw" in x:
+        for k in ("reads", "writes"):
+            worst["rw_count"] = max(worst["rw_count"],
+                                    abs(x["rw"][k] - y["rw"][k]))
+        for k in ("read_mean_ms", "write_mean_ms", "read_p99_ms"):
+            worst["rw_rel"] = max(worst["rw_rel"], abs(
+                x["rw"][k] - y["rw"][k]) / abs(y["rw"][k]))
+
+
+def check_branches(device):
+    """Phase 18: card == rerun == plain fan-in, bit for bit, extras
+    included; card vs CPU within phase 6's tolerance."""
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import registry
+    for name in BRANCH_CHECKS:
+        (sc,) = registry.select(name)
+        kw = branch_kwargs(sc, sc.resolve(True))
+
+        def run(dev, kernel="auto"):
+            return vectorsim.simulate_scenario(sc.protocol, sc.n,
+                                               kernel=kernel, device=dev,
+                                               **kw)
+        t0 = time.perf_counter()
+        a, b, p = run(device), run(device), run(device, "torch")
+        card_s = time.perf_counter() - t0
+        if a != b:
+            raise SystemExit(f"{name}: two runs on the card differ")
+        if a != p:
+            raise SystemExit(f"{name}: kernel run != plain-version run on "
+                             f"the card")
+        t0 = time.perf_counter()
+        c = run("cpu")
+        cpu_s = time.perf_counter() - t0
+        worst = {"count": 0, "committed": 0, "lat_rel": 0.0, "msg_abs": 0.0,
+                 "timeline": 0, "backlog_n": 0, "backlog_rel": 0.0,
+                 "rw_count": 0, "rw_rel": 0.0}
+        for x, y in zip(a, c):
+            if sorted(x) != sorted(y):
+                raise SystemExit(f"{name}: card and cpu units differ in "
+                                 f"their fields")
+            unit_gap(x, y, worst)
+        log(f"bcheck   {name} quick ({len(a)} cells): cuda == cuda rerun, "
+            f"kernel == plain version (extras included; 3 card runs "
+            f"{card_s:.2f}s, cpu {cpu_s:.2f}s); cuda vs cpu worst {worst}")
+        if (worst["count"] > COUNT_SLACK or worst["committed"] > COUNT_SLACK
+                or worst["lat_rel"] > LAT_REL or worst["msg_abs"] > MSG_ABS
+                or worst["timeline"] > COUNT_SLACK or worst["backlog_n"] > 0
+                or worst["backlog_rel"] > LAT_REL
+                or worst["rw_count"] > COUNT_SLACK
+                or worst["rw_rel"] > LAT_REL):
+            raise SystemExit(f"{name}: cuda and cpu disagree beyond the "
+                             f"parity tolerance: {worst}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -1690,34 +1882,51 @@ def main() -> int:
     log(f"device   {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)")
 
-    build_kernels()
-    err = check_kernel(device)
-    timing = time_kernel(device)
-    launches = run_main_path(device)
-    launches_per_step(device)
-    cross_check(device)
+    walls = {}
 
-    flash_err = check_flash(device)
-    flash_timing = time_flash(device)
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        log(f"wall     phase {name}: {walls[name]:.2f} s")
+        return out
+
+    phase("2 build", build_kernels)
+    err = phase("3 kernel", check_kernel, device)
+    timing = phase("4 timing", time_kernel, device)
+    launches = phase("5 main", run_main_path, device)
+    phase("5 trace", launches_per_step, device)
+    phase("6 check", cross_check, device)
+    launches += phase("17 branches", run_branches, device)
+    phase("18 bcheck", check_branches, device)
+
+    flash_err = phase("7 flash", check_flash, device)
+    flash_timing = phase("8 timing", time_flash, device)
     cfg, params, prompts = serve_inputs(device)
-    flash_launches, served = run_serve(device, cfg, params, prompts)
-    check_serve(device, cfg, params, prompts, served, flash_timing["ms"])
-    check_smoke_serve(device, SERVE_ARCH, "flash", flash_attention,
-                      SMOKE_LOGIT_TOL)
+    flash_launches, served = phase("9 serve", run_serve, device, cfg, params,
+                                   prompts)
+    phase("10 check", check_serve, device, cfg, params, prompts, served,
+          flash_timing["ms"])
+    phase("10 smoke", check_smoke_serve, device, SERVE_ARCH, "flash",
+          flash_attention, SMOKE_LOGIT_TOL)
     del cfg, params, prompts, served
     torch.cuda.empty_cache()
 
-    pig_err = check_pig(device)
-    pig_timing = time_pig(device)
-    pig_launches = run_sync(device)
+    pig_err = phase("11 pig", check_pig, device)
+    pig_timing = phase("12 timing", time_pig, device)
+    pig_launches = phase("13 sync", run_sync, device)
     torch.cuda.empty_cache()
 
-    ssm_err = check_ssm(device)
-    ssm_timing = time_ssm(device)
+    ssm_err = phase("14 ssm", check_ssm, device)
+    ssm_timing = phase("15 timing", time_ssm, device)
     cfg, params, prompts = rwkv_inputs(device)
-    ssm_launches, served = run_rwkv_serve(device, cfg, params, prompts)
-    check_rwkv_serve(device, cfg, params, prompts, served, ssm_timing["ms"])
-    check_smoke_serve(device, RWKV_ARCH, "auto", ssm_scan, RWKV_SMOKE_LOGIT_TOL)
+    ssm_launches, served = phase("16 serve", run_rwkv_serve, device, cfg,
+                                 params, prompts)
+    phase("16 check", check_rwkv_serve, device, cfg, params, prompts, served,
+          ssm_timing["ms"])
+    phase("16 smoke", check_smoke_serve, device, RWKV_ARCH, "auto", ssm_scan,
+          RWKV_SMOKE_LOGIT_TOL)
+    log(f"wall     phases 2-18 together: {sum(walls.values()):.2f} s")
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",

@@ -6,8 +6,9 @@ path for the dense families, and the Pig collective schedules on
 The port mirrors ``repro``'s module names so each counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or anything of ``repro``:
 the framework-neutral pieces it needs (cost constants, quorum sizes, the
-Pig group partition, the LAN topology, the model configs) are copied into
-``core/``, ``models/config.py`` and ``configs/``.
+Pig group partition, the topology, the workload shape, the fault plans'
+mask lowering, the model configs) are copied into ``core/``, ``faults/``,
+``models/config.py`` and ``configs/``.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` explicitly (see ``device.resolve_device``).

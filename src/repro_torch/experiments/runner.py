@@ -12,9 +12,15 @@ Every run emits the reference's artifact schema
         {"name": ..., "family": ..., "grid_mode": ..., "quick": bool,
          "backend": "batch", "spec": {...}, "consistency": "model",
          "units": [...], "replicates": [...], "summary": {...},
+         "faults": [...],                  # fault-plan scenarios only
          "run": {"device": name, "cells": C, "scan_steps": S,
                  "wall_s": w}},
         ...]}
+
+A unit's ``extras`` carry, as the reference's do, the per-node message
+loads (``collect=("per_node_msgs",)``), the completion ``timeline`` (fault
+plans), the leader-backlog series ``obs`` and the read/write split ``rw``
+(leased reads); a fault-plan unit has ``consistency="model"``.
 
 ``run`` is the port's addition: the device the grid ran on, and the scan
 steps it took (one fan-in kernel launch each).
@@ -26,6 +32,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from ..core import vectorsim
+from ..faults.plan import jsonify_events
 from .scenario import Scenario, build_topology
 
 ARTIFACT_SCHEMA = "repro-experiments/v1"
@@ -43,13 +50,17 @@ def _run_batch_scenario(sc: Scenario, rs, device=None,
                         info: Optional[dict] = None) -> List[dict]:
     """One scenario's whole clients x seeds grid on the batch backend.
     Returns unit dicts in (clients, seed) order with the reference's
-    schema (wall_s is the amortized grid wall)."""
+    schema (wall_s is the amortized grid wall).  A fault plan runs as
+    availability masks over the resolved window plus the drain."""
     t0 = time.time()
+    plan = sc.fault_plan()
+    masks = (plan.to_masks(sc.n, rs.warmup + rs.duration + 0.5)
+             if plan is not None else None)
     raw = vectorsim.simulate_scenario(
         sc.protocol, sc.n, pig=sc.pig, topo=build_topology(sc.topo),
         workload=sc.workload, clients=rs.clients, seeds=rs.seeds,
         duration=rs.duration, warmup=rs.warmup,
-        leader_timeout=sc.leader_timeout,
+        leader_timeout=sc.leader_timeout, masks=masks,
         batch_m=(sc.batch or {}).get("max_batch", 1),
         obs=sc.obs is not None, device=device, info=info)
     wall = time.time() - t0
@@ -67,10 +78,21 @@ def _run_batch_scenario(sc: Scenario, rs, device=None,
             "retry_risk": u["retry_risk"],
             "exhausted": u["exhausted"],
         }
+        extras = {}
         if "per_node_msgs" in sc.collect:
-            unit["extras"] = {
-                "leader_msgs_per_op": _f(u["leader_msgs_per_op"]),
-                "follower_msgs_per_op": _f(u["follower_msgs_per_op"])}
+            extras["leader_msgs_per_op"] = _f(u["leader_msgs_per_op"])
+            extras["follower_msgs_per_op"] = _f(u["follower_msgs_per_op"])
+        if "timeline" in u:
+            extras["timeline"] = u["timeline"]
+        if "obs" in u:
+            extras["obs"] = u["obs"]
+        if "rw" in u:
+            extras["rw"] = {k: (_f(v) if isinstance(v, float) else v)
+                            for k, v in u["rw"].items()}
+        if plan is not None:
+            unit["consistency"] = "model"
+        if extras:
+            unit["extras"] = extras
         units.append(unit)
     return units
 
@@ -91,6 +113,13 @@ def _scenario_artifact(sc: Scenario, units: List[dict], quick: bool) -> dict:
            # batch backend: commits by construction
            "consistency": "model",
            "units": units}
+    plan = sc.fault_plan()
+    if plan is not None:
+        # the materialized fault timeline over the RESOLVED horizon: the
+        # events this run applied
+        rs = sc.resolve(quick)
+        art["faults"] = jsonify_events(
+            plan.materialize(rs.warmup + rs.duration + 0.5))
     # per-seed replicates: apply the grid policy within each seed
     by_seed: Dict[int, List[dict]] = {}
     for u in units:

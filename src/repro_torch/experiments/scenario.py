@@ -1,7 +1,11 @@
 """Declarative experiment specs, the batch-path subset of
 ``repro.experiments.scenario.Scenario``: the fields the batch runner
-reads, plus ``resolve`` and ``spec_dict``.  The discrete-event engines
-are not ported, so every scenario here runs on the batch backend."""
+reads, ``fault_plan``, ``resolve`` and ``spec_dict``, and the reference's
+registration-time checks of the batch path, word for word.  The
+discrete-event engines are not ported, so every scenario here runs on the
+batch backend, and the fields only they read (engine, audit, spare nodes,
+failover, admission, pipelining) are not copied; nor is the check of the
+``obs`` knobs' values, which configure the discrete-event tracer."""
 from __future__ import annotations
 
 import dataclasses
@@ -9,8 +13,15 @@ import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from ..core.network import Topology
+from ..core.network import Topology, wan_topology
 from ..core.pig import PigConfig
+from ..core.workload import WorkloadConfig
+from ..faults.plan import FaultPlan, validate_event
+
+# Legacy failure schedule entries (all times are virtual seconds), folded
+# into the scenario's FaultPlan: ("crash", node_id, t), ("recover",
+# node_id, t), ("partition", a, b, t), ("heal", a, b, t)
+FailureEvent = Tuple
 
 
 @dataclass(frozen=True)
@@ -21,8 +32,15 @@ class Scenario:
     protocol: str                            # "paxos" | "pigpaxos"
     n: int
     pig: Optional[PigConfig] = None
-    workload: Optional[object] = None        # a WorkloadConfig-like object
-    topo: Optional[dict] = None              # {"kind": "lan", "n": ..., ...}
+    workload: Optional[WorkloadConfig] = None
+    # {"kind": "lan", "n": ..., ...} or
+    # {"kind": "wan", "nodes_per_region": [...], "oneway_ms": [[...]]}
+    topo: Optional[dict] = None
+    failures: Tuple[FailureEvent, ...] = ()
+    # declarative fault plan (mask-expressible on the batch backend:
+    # crash/recover windows and whole-run slow nodes), merged with
+    # ``failures`` by fault_plan()
+    faults: Optional[FaultPlan] = None
     clients: Tuple[int, ...] = (60,)         # offered-load grid (client counts)
     # "max"   — per seed, keep the best throughput over the client grid
     # "curve" — report every grid point
@@ -33,11 +51,19 @@ class Scenario:
     backend: str = "batch"
     batch_ok: bool = False
     leader_timeout: float = 50e-3
-    # leader-side batching kwargs ({"max_batch": m}); m > 1 is not ported
+    # leader-side batching kwargs ({"max_batch": m, "max_delay_ms": ms}):
+    # max_batch maps to vectorsim's batch_m (the saturated-batch model, so
+    # max_delay_ms is ignored and clients must divide by max_batch)
     batch: Optional[dict] = None
-    # batch obs leader-backlog series; not ported
+    # leader-lease kwargs ({"duration_ms": d, "renew_ms": r, "drift_bound":
+    # b, "lease_safety": True}), required for read_path="lease"; the batch
+    # backend models an uncontested lease held for the whole run
+    lease: Optional[dict] = None
+    # observability kwargs: the batch backend emits the leader-backlog
+    # series when set
     obs: Optional[dict] = None
-    collect: Tuple[str, ...] = ()            # extras: "per_node_msgs"
+    # extras: "per_node_msgs" | "timeline" (fault runs)
+    collect: Tuple[str, ...] = ()
     # quick-mode overrides (None -> use the full-mode value / skip nothing)
     quick_clients: Optional[Tuple[int, ...]] = None
     quick_duration: Optional[float] = None
@@ -50,14 +76,94 @@ class Scenario:
             raise NotImplementedError(
                 "repro_torch ports the batch backend only; the discrete-"
                 "event engines (backend='des') stay in repro")
-        bad = [c for c in self.collect if c != "per_node_msgs"]
+        for ev in self.failures:
+            validate_event(tuple(ev))
+        plan = self.fault_plan()
+        if plan is not None:
+            plan.validate_targets(self.n, self.horizon)
+        if self.batch is not None:
+            m = self.batch.get("max_batch", 1)
+            if m < 1:
+                raise ValueError("batch.max_batch must be >= 1")
+            if self.protocol == "epaxos":
+                raise ValueError("batch-backend batching is group-kernel "
+                                 "only — batched EPaxos runs are DES-"
+                                 "authoritative")
+            bad = [k for k in self.clients if k % m]
+            if bad:
+                raise ValueError(
+                    f"batch backend requires client counts divisible by "
+                    f"max_batch={m}; offending grid points: {bad}")
+        if self.obs is not None and self.protocol == "epaxos":
+            raise ValueError("batch-backend observability is group-"
+                             "kernel only (single-leader backlog "
+                             "series) — traced EPaxos runs need the "
+                             "DES")
+        rr = (self.workload.read_ratio
+              if self.workload is not None else None)
+        rpath = (self.workload.read_path
+                 if self.workload is not None else "log")
+        if self.lease is not None:
+            _check_lease(**self.lease)
+            if self.protocol == "epaxos":
+                raise ValueError(
+                    "leases are leader-granted; epaxos is leaderless — "
+                    "epaxos read scenarios use read_path='quorum'")
+        if rpath == "lease" and rr is not None and rr > 0.0 \
+                and self.lease is None:
+            raise ValueError(
+                "read_path='lease' requires lease= (no granted lease, no "
+                "local leader reads — set e.g. lease={'duration_ms': 200})")
+        if rr is not None and rr > 0.0:
+            if rpath == "quorum":
+                raise ValueError(
+                    "batch backend models log and leased leader reads "
+                    "only; quorum reads (probe / rinse rounds) need the "
+                    "DES")
+            if rpath == "lease":
+                if plan is not None:
+                    raise ValueError(
+                        "batch leased reads assume the lease is held for "
+                        "the whole run — fault plans need the DES")
+                if self.batch is not None \
+                        and self.batch.get("max_batch", 1) > 1:
+                    raise ValueError(
+                        "batch leased reads with leader batching are "
+                        "DES-authoritative (reads bypass the batch "
+                        "buffer)")
+        ok_collect = {"per_node_msgs"}
+        if plan is not None:
+            ok_collect.add("timeline")   # fault runs emit timelines
+        bad = [c for c in self.collect if c not in ok_collect]
         if bad:
             raise ValueError(f"batch backend does not support "
                              f"{bad} collection — use the DES")
+        if plan is not None and not plan.mask_expressible(self.horizon):
+            raise ValueError(
+                "batch backend supports only mask-expressible fault "
+                "plans (crash/recover windows + whole-run slow nodes) "
+                "— use the DES for this plan")
+        if plan is not None and self.protocol == "epaxos":
+            raise ValueError("batch EPaxos does not support faults")
 
     @property
     def family(self) -> str:
         return self.name.split("/", 1)[0]
+
+    @property
+    def horizon(self) -> float:
+        """Virtual-time span fault plans are materialized over (the
+        full-mode measure window plus the drain)."""
+        return self.warmup + self.duration + 0.5
+
+    def fault_plan(self) -> Optional[FaultPlan]:
+        """The unified fault plan: ``faults`` merged with the legacy
+        ``failures`` tuples.  None when the scenario is fault-free."""
+        plan = self.faults
+        if self.failures:
+            plan = (plan or FaultPlan()) + FaultPlan(
+                events=tuple(tuple(ev) for ev in self.failures))
+        return plan if plan else None
 
     def resolve(self, quick: bool) -> "ResolvedScenario":
         if quick:
@@ -87,18 +193,29 @@ class ResolvedScenario:
     warmup: float
 
 
+def _check_lease(duration_ms: float = 200.0, renew_ms=None,
+                 drift_bound: float = 1e-4, lease_safety: bool = True):
+    """The lease kwargs' checks (``repro.core.paxos.LeaseConfig``)."""
+    if duration_ms <= 0:
+        raise ValueError("lease duration_ms must be > 0")
+    if renew_ms is not None and not (0 < renew_ms <= duration_ms):
+        raise ValueError("lease renew_ms must be in (0, duration_ms]")
+    if not (0.0 <= drift_bound < 0.4):
+        raise ValueError("drift_bound must be in [0, 0.4) — the safety "
+                         "margin 1 - 2*drift_bound must stay positive")
+
+
 def build_topology(spec: Optional[dict]) -> Optional[Topology]:
-    """Materialize a declarative LAN topology spec."""
+    """Materialize a declarative topology spec."""
     if spec is None:
         return None
     kind = spec.get("kind", "lan")
+    if kind == "wan":
+        return wan_topology(list(spec["nodes_per_region"]),
+                            [list(r) for r in spec["oneway_ms"]])
     if kind == "lan":
         kw = {k: spec[k] for k in ("base_latency", "jitter") if k in spec}
         return Topology(n=spec["n"], **kw)
-    if kind == "wan":
-        raise NotImplementedError(
-            "WAN topologies are not ported to repro_torch yet (ROADMAP "
-            "queue 1, item 6, WAN region gathers)")
     raise ValueError(f"unknown topology kind {kind!r}")
 
 
@@ -107,6 +224,8 @@ def _jsonify(x):
         return {k: _jsonify(v) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [_jsonify(v) for v in x]
+    if isinstance(x, bytes):
+        return len(x)            # payload bytes: record the size only
     if isinstance(x, float) and math.isinf(x):
-        return None
+        return None              # open-ended fault windows: strict JSON
     return x

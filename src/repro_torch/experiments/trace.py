@@ -3,7 +3,10 @@
     python -m repro_torch.experiments.trace --filter 'scale/batch/N=257/R=16' \\
         [--full] [--device cpu]
 
-Runs each selected scenario once untraced (the wall-clock reference), then
+Runs each selected scenario (any registered one: the ``scale``, ``wan``,
+``avail``, ``batching``, ``obs`` and ``reads`` families; a fault plan's
+masks, batching, leased reads and obs go through the runner as in a
+suite run) once untraced (the wall-clock reference), then
 once under ``torch.profiler``, and prints per scenario: wall seconds and
 ms per scan step, the device's busy time (the union of its kernel
 intervals) and idle share over the traced window, and the kernels that

@@ -6,8 +6,9 @@ each other on one card.
     # (-P keeps this file's directory, which holds a trace.py, off the path):
     PYTHONPATH=src python -P /path/to/walls.py --tag parent [--trace]
 
-Runs a quick R=3 grid to warm up, then each selected scenario once in full
-mode, and prints one JSON line a run: the wall, the main thread's CPU
+Runs a quick R=3 grid to warm up, then each selected scenario (the three
+``scale/batch`` grids unless ``--filter`` names other registered ones) once
+in full mode, and prints one JSON line a run: the wall, the main thread's CPU
 seconds (the step loop is host-bound, and a shared host's other work shows
 in the wall, not in this thread's time), both a scan step, and cells/s.
 ``--trace`` adds a quick run of the scenario the filter names first under

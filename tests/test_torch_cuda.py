@@ -178,6 +178,79 @@ def test_sm90_entries_match_plain_version(cuda, name, sizes, pad, F):
     assert torch.equal(segfanin.seg_fanin_rows_baseline(*rows), got_rows)
 
 
+# the WAN scenarios' explicit per-region groups: 16/16/16 at F=48
+# (wan/N=49) and 34/33/33 at F=100 (wan/N=101), whose segments cross
+# 32-slot windows, and wan/N=25's 8/8/8
+WAN_LAYOUTS = [("wan/N=25", [8, 8, 8], 24), ("wan/N=49", [16, 16, 16], 48),
+               ("wan/N=101", [34, 33, 33], 100)]
+
+
+@pytest.mark.parametrize("name,sizes,F", WAN_LAYOUTS,
+                         ids=[x[0] for x in WAN_LAYOUTS])
+def test_sm90_entries_match_plain_version_at_wan_widths(cuda, name, sizes,
+                                                        F):
+    """Both sm90 entries at the WAN layouts, bit for bit, at the full
+    grids' rows (32 cells x 8)."""
+    layout, step = _groups(F + 1, sizes, 0, F, 32, 8, cuda)
+    rows = _rows(layout, step)
+    before = segfanin.launches_sm90
+    got = segfanin.FaninGroups(*layout, 8)(*step)
+    got_rows = segfanin.seg_fanin_rows(*rows)
+    torch.cuda.synchronize()
+    assert segfanin.launches_sm90 == before + 2
+    assert torch.equal(got, _want_groups(layout, step))
+    assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
+
+
+def _branch_kw(branch):
+    from repro_torch.core.network import wan_topology
+    from repro_torch.core.workload import WorkloadConfig
+    from repro_torch.faults.plan import crash_window, slow_window
+    if branch == "wan":
+        per = [17, 16, 16]
+        groups = [list(range(0, 17)), list(range(17, 33)),
+                  list(range(33, 49))]
+        return 49, dict(pig=PigConfig(n_groups=3, groups=groups, prc=1),
+                        topo=wan_topology(per, [[0.15, 31, 35],
+                                                [31, 0.15, 11],
+                                                [35, 11, 0.15]]),
+                        duration=0.4)
+    if branch == "batching":
+        return 25, dict(pig=PigConfig(n_groups=3, prc=1), batch_m=4,
+                        clients=(16, 32))
+    if branch == "avail":
+        plan = crash_window(1, 0.06, 0.1) + slow_window(2,
+                                                         extra_latency=2e-3)
+        return 25, dict(pig=PigConfig(n_groups=3, prc=1),
+                        masks=plan.to_masks(25, 0.65))
+    if branch == "reads":
+        return 25, dict(workload=WorkloadConfig(read_ratio=0.9,
+                                                read_path="lease"))
+    return 25, dict(pig=PigConfig(n_groups=5, prc=1), obs=True)
+
+
+@pytest.mark.parametrize("branch", ["wan", "batching", "avail", "reads",
+                                    "obs"])
+def test_branch_run_through_the_kernel_equals_the_plain_run(cuda, branch):
+    """Each optional branch of the group kernel: one sm90 launch a scan
+    step, a rerun bit-identical, and the plain fan-in's run bit for bit,
+    extras (timeline, obs, rw) included."""
+    n, kw = _branch_kw(branch)
+    kw = dict(dict(clients=(8, 20), seeds=(0, 1), duration=0.1,
+                   warmup=0.05, device=cuda), **kw)
+    proto = "paxos" if branch == "reads" else "pigpaxos"
+    segfanin.launches = segfanin.launches_sm90 = 0
+    info: dict = {}
+    a = vectorsim.simulate_scenario(proto, n, info=info, **kw)
+    assert segfanin.launches == segfanin.launches_sm90 \
+        == info["scan_steps"] > 0
+    assert vectorsim.simulate_scenario(proto, n, **kw) == a
+    b = vectorsim.simulate_scenario(proto, n, kernel="torch", **kw)
+    assert a == b
+    extra = {"avail": "timeline", "reads": "rw", "obs": "obs"}.get(branch)
+    assert extra is None or all(extra in u for u in a)
+
+
 def test_sm90_graph_replay_equals_eager_launch(cuda):
     layout, step = _groups(7, [32] * 32, 0, 1024, 6, 8, cuda)
     plan = segfanin.FaninGroups(*layout, 8)

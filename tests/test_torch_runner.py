@@ -4,6 +4,7 @@ CLI.  One quick R=3 grid (8 cells) runs on each side."""
 import json
 
 import jax  # noqa: F401  (the reference runner runs on JAX's CPU backend)
+import numpy as np
 import pytest
 import torch
 
@@ -30,14 +31,24 @@ def arts():
 
 
 def test_catalog_is_the_scale_batch_family():
-    want = [n for n in ref_registry.names() if n.startswith("scale/batch/")]
-    assert registry.names() == want
+    """The port registers the reference's batch-backend scenarios that the
+    group kernel runs, in the reference's order and with its specs: the 9
+    ``scale/batch/*`` and the 14 of the wan, avail, batching, obs and reads
+    families; the EPaxos ``conflict/*/batch`` and ``megagrid/slice/*``
+    wait on their modules."""
+    want = [n for n in ref_registry.names()
+            if ref_registry.select(n)[0].backend == "batch"
+            and not n.startswith(("conflict/", "megagrid/"))]
+    assert registry.names() == want and len(want) == 23
     for name in want:
         (p,) = registry.select(name)
         (r,) = ref_registry.select(name)
         pd, rd = p.spec_dict(), r.spec_dict()
         assert {k: rd[k] for k in pd} == pd, name
     assert len(registry.select("scale")) == 9
+    for fam, count in (("wan", 3), ("avail", 2), ("batching", 6),
+                       ("obs", 1), ("reads", 2)):
+        assert len(registry.select(fam)) == count, fam
     with pytest.raises(ValueError, match="matched no scenario"):
         registry.select("fig8/*")
 
@@ -97,3 +108,40 @@ def test_quick_skip_and_default_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         runner.run_scenarios(registry.select(R3), quick=True)
+
+
+OBS = "obs/pigpaxos/backlog/batch"
+
+
+def test_obs_artifact_passes_the_gate_and_matches_reference():
+    """A quick artifact of a new family (the obs leader-backlog series)
+    through the unchanged gate, fed the bound entries that name the port's
+    scenarios, and its units against the reference's: the same schema,
+    extras included."""
+    with open(regression_gate.DEFAULT_BOUNDS) as f:
+        bounds = json.load(f)
+    # every entry that names one of the port's new scenarios (the scale
+    # family's R=3 window is fed to the gate above)
+    names = {n for n in registry.names() if not n.startswith("scale/")}
+    fed = {sec: {k: v for k, v in entries.items() if k in names}
+           for sec, entries in bounds.items()
+           if sec in ("bounds", "speedup", "overload")}
+    assert fed == {"bounds": {OBS: [6220, 10366]}, "speedup": {},
+                   "overload": {}}
+    port = runner.run_scenarios(registry.select(OBS), quick=True,
+                                device="cpu")
+    seen = {sa["name"]: sa for sa in port["scenarios"]}
+    failures, lines = regression_gate.evaluate(seen, fed)
+    assert failures == [], failures
+    assert any(OBS in line and line.startswith("ok") for line in lines)
+    ref = ref_runner.run_scenarios(ref_registry.select(OBS), quick=True)
+    (ps,), (rs,) = port["scenarios"], ref["scenarios"]
+    assert [sorted(u) for u in ps["units"]] == [sorted(u) for u in rs["units"]]
+    for a, b in zip(ps["units"], rs["units"]):
+        assert abs(a["count"] - b["count"]) <= 1
+        assert a["p99_ms"] == pytest.approx(b["p99_ms"], rel=1e-5)
+        pa, pb = a["extras"]["obs"], b["extras"]["obs"]
+        assert pa["leader_backlog"]["n"] == pb["leader_backlog"]["n"]
+        np.testing.assert_allclose(pa["leader_backlog"]["mean_ms"],
+                                   pb["leader_backlog"]["mean_ms"],
+                                   rtol=1e-5, atol=1e-6)
