@@ -19,8 +19,11 @@ Phases, in order; any failure exits non-zero:
              segment of 1024, padded groups of size 0 (with and without a
              tail), the WAN scenarios' per-region groups (F = 48 with
              16/16/16, F = 100 with 34/33/33, crossing 32-slot windows),
-             ties, masked slots and a fully masked segment; one launch a
-             call, ``launches_sm90`` moving for the sm90 kernel;
+             the megagrid study's group layouts (F = 8, 16, 24: Paxos and
+             R = 1 to 8 padded to the bucket's group count, N = 5 in F = 8
+             with a tail; 4,096-cell chunks at B = 4 and 8), ties, masked
+             slots and a fully masked segment; one launch a call,
+             ``launches_sm90`` moving for the sm90 kernel;
 4. timing  - the three at each batch grid's shape (384 x 1024, 2048 x 256,
              1536 x 24) on the same inputs: device ms a launch (200 launches
              captured once in a CUDA graph and replayed: the replay's
@@ -56,6 +59,39 @@ Phases, in order; any failure exits non-zero:
              included, and the card agrees with the CPU within phase 6's
              tolerance (extras: timeline buckets and read/write counts
              within one, backlog and read/write means rel 1e-5).
+19. efanin - (run after phase 18, with the batch path) the sm90 per-slot
+             entry ``seg_fanin_rows`` against its plain version, bit for
+             bit, at the EPaxos layouts: one segment of F = 5, 9, 17, 25,
+             49 slots a row with the coordinator's slot +inf, caps fq - 2
+             and majority - 2, ties, rows = 8 cells (a conflict grid) and
+             4,096 (a megagrid chunk); timed (graph replay, host-launched,
+             the interface's bound and the EPaxos path's, plain version)
+             at 8 x 25 and 4,096 x 17;
+20. conflict - the 8 ``conflict/*/batch`` full grids through
+             ``run_scenarios`` on cuda: ``launches_sm90 == 2 x scan_steps``
+             (and the runner's own count), no cell exhausted or
+             non-finite, ``conflict/N=25/c=0.1/batch``'s quick mean
+             throughput inside its ``reference_bounds.json`` window;
+21. ccheck - quick ``conflict/N=25/c=0.1/batch`` and a zipfian EPaxos
+             grid: card == rerun == the plain fan-in's run on the card, bit
+             for bit, and card vs CPU within phase 6's tolerance;
+22. megagrid - the 4 ``megagrid/slice/*`` full grids (one launch a scan
+             step) with their three quick gate windows;
+             ``simulate_grid_sharded`` in 64-cell chunks == one
+             ``simulate_grid`` call, bit for bit, on a group and an EPaxos
+             bucket of the study; one 4,096-cell chunk of a group bucket
+             of each width (F = 8, 16, 24) and of an EPaxos bucket through
+             the sm90 fan-in == through the plain one, bit for bit (two
+             launches an EPaxos scan step, one a group one, none in the
+             plain run); then ``run_megagrid`` at the full axes
+             and 2**18 cells (262,272: every bucket of the 1,000,000-cell
+             study, whose CLI run takes ~270 s more): per bucket cells,
+             scan steps, retries,
+             wall and host stacking seconds, the launches (one a group
+             scan step, two an EPaxos one), no cell exhausted after retry,
+             the roofline note;
+23. jaxsim - ``relay_load_mc(25, 3, 8192)`` on the card == the CPU's, bit
+             for bit; ``latency_curve`` within 1e-6 relative.
 7. flash   - the sm90 flash_attention kernel against its plain version on
              the card in bf16 at granite-8b's prefill shape, granite at its
              max_seq_len, a ragged S, gemma-7b's head dim 256 and a
@@ -166,6 +202,26 @@ OBS = "obs/pigpaxos/backlog/batch"
 SPEEDUPS = (("batching/paxos/m=8/batch", "batching/paxos/m=1/batch"),
             ("reads/paxos/lease/r=0.9/batch", "reads/paxos/log/r=0.9/batch"))
 SPEEDUP_MIN = 2.0          # benchmarks/reference_bounds.json "speedup"
+# the EPaxos fan-in layouts (phase 19): one segment of F = n slots a row,
+# rows = cells (8: a conflict grid; 4,096: a megagrid chunk, to which
+# every EPaxos bucket of the study is padded)
+EFANIN_F = (5, 9, 17, 25, 49)
+EFANIN_ROWS = (8, 4096)
+EFANIN_TIMED = (("conflict N=25", 8, 25), ("megagrid N=17", 4096, 17))
+CONFLICT_CHECK = "conflict/N=25/c=0.1/batch"
+# the megagrid slices' gate windows (reference_bounds.json, quick mode)
+MEGAGRID_WINDOWS = ("megagrid/slice/N=9/R=2/PRC=1/lan",
+                    "megagrid/slice/N=9/R=2/PRC=1/wan3",
+                    "megagrid/slice/N=25/R=4/PRC=0/lan")
+# phase 22's study: 2**18 cells (every one of the 24 buckets, a quarter of
+# the chunks) keeps the script inside 600 s; the 1,000,000-cell study runs
+# from the megagrid CLI (README)
+MEGAGRID_CELLS = 2 ** 18
+# the study's buckets run whole-chunk through the sm90 fan-in and the plain
+# one on the card (phase 22): each group width class, both requests a step
+# (B = min(8, clients class)), and an EPaxos bucket
+PLAIN_CHUNKS = (("group", 8, 4, "lan"), ("group", 16, 16, "wan3"),
+                ("group", 24, 16, "lan"), ("epaxos", 17, 16, "wan3"))
 # the CPU parity tolerance for damped cells (tests/test_torch_vectorsim.py):
 # counts within one request at the window edges, latency percentiles to
 # rel 1e-5, message loads to abs 1e-6
@@ -348,21 +404,63 @@ def rows_of(layout, step):
 
 
 def fanin_cases():
-    """(F, name, real group sizes, padded groups, cells) of phase 3: the
+    """(F, name, real group sizes, padded groups, cells, B) of phase 3: the
     main path's groups and a ragged layout at each of its widths, Paxos's
-    segments of 1, one segment of 1024 (PigPaxos at R=1) and padded groups
-    of size 0, with and without a tail of slots past the last group."""
-    cases = [(F, name, sizes, 0, cells)
+    segments of 1, one segment of 1024 (PigPaxos at R=1), padded groups of
+    size 0, with and without a tail of slots past the last group, and the
+    megagrid study's chunks (``megagrid_cases``)."""
+    cases = [(F, name, sizes, 0, cells, 8)
              for F, cells in ((24, 192), (256, 256), (1024, 48))
              for name, sizes in layouts(F)]
     r3 = layouts(24)[0][1]
     return cases + [
-        (24, "paxos", [1] * 24, 0, 192), (1024, "paxos", [1] * 1024, 0, 48),
-        (1024, "R=1", [1024], 0, 48), (24, "R=3 of R=4", r3, 1, 192),
-        (24, "20+tail", [7, 7, 6], 2, 192),
-        (1024, "31 of 32", [32] * 31, 1, 48),
-        (48, "wan/N=49", [16, 16, 16], 0, 32),
-        (100, "wan/N=101", [34, 33, 33], 0, 32)]
+        (24, "paxos", [1] * 24, 0, 192, 8),
+        (1024, "paxos", [1] * 1024, 0, 48, 8),
+        (1024, "R=1", [1024], 0, 48, 8), (24, "R=3 of R=4", r3, 1, 192, 8),
+        (24, "20+tail", [7, 7, 6], 2, 192, 8),
+        (1024, "31 of 32", [32] * 31, 1, 48, 8),
+        (48, "wan/N=49", [16, 16, 16], 0, 32, 8),
+        (100, "wan/N=101", [34, 33, 33], 0, 32, 8)] + megagrid_cases()
+
+
+def megagrid_cases():
+    """The grouped entry's layouts in the megagrid study's group buckets
+    (F = 8, 16 and 24 slots; N = 5 padded into F = 8 with a tail; R = 1 to
+    8 groups and Paxos's segments of 1, padded to the bucket's group
+    count), each at a chunk of 4,096 cells and at the bucket's requests a
+    step (B = 4 or 8): read from the bucket's stacked cells and held equal
+    to ``groups_case``'s layout."""
+    import numpy as np
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import megagrid
+    pts, buckets = megagrid.plan(MEGAGRID_CELLS)
+    cases = {}
+    for bkey, pairs in buckets:
+        if bkey[0] != "group":
+            continue
+        pis = sorted({pi for pi, _ in pairs})
+        grid = [(pis.index(pi), k, 0) for pi, k in pairs]
+        batch, _, kmax = vectorsim._stack_cells(
+            [pts[pi]["cfg"] for pi in pis], grid, 0.1, 0.05)
+        F, B = batch["grp"].shape[1], min(8, kmax)
+        for i, (pi, _) in enumerate(pairs):
+            sz = batch["sizes"][i]
+            sizes = [int(v) for v in sz[sz > 0]]
+            pad = len(sz) - len(sizes)
+            key = (F, tuple(sizes), pad, B)
+            if key in cases:
+                continue
+            layout, _ = groups_case(sizes, pad, F, 1, B, "cpu", seed=0)
+            want = (batch["grp"][i], batch["gstart"][i], sz)
+            if not all(np.array_equal(t[0].numpy(), w)
+                       for t, w in zip(layout, want)):
+                raise SystemExit(f"megagrid layout {pts[pi]['name']} is not "
+                                 f"groups_case({sizes}, {pad}, {F})")
+            name = pts[pi]["name"].split("/")
+            cases[key] = (F, "mg " + "/".join(name[:3 if name[0] == "pig"
+                                                    else 2]),
+                          sizes, pad, 4096, B)
+    return list(cases.values())
 
 
 def check_kernel(device):
@@ -375,14 +473,14 @@ def check_kernel(device):
     from repro_torch.kernels.ref import (seg_fanin_groups_ref,
                                          seg_fanin_rows_ref)
     worst = 0.0
-    for F, name, sizes, pad, cells in fanin_cases():
-        layout, step = groups_case(sizes, pad, F, cells, 8, device,
+    for F, name, sizes, pad, cells, B in fanin_cases():
+        layout, step = groups_case(sizes, pad, F, cells, B, device,
                                    seed=F + len(sizes) + pad)
         rows = rows_of(layout, step)
         want_rows = seg_fanin_rows_ref(*rows)
         want_groups = seg_fanin_groups_ref(*step[:3], layout[0], layout[1],
                                            layout[3], *step[3:])
-        plan = segfanin.FaninGroups(*layout, 8)
+        plan = segfanin.FaninGroups(*layout, B)
         for kernel, fn, want, sm90 in (
                 ("baseline", lambda: segfanin.seg_fanin_rows_baseline(*rows),
                  want_rows, 0),
@@ -398,7 +496,7 @@ def check_kernel(device):
             worst = max(worst, err)
             ok = same_bits(got, want) and launched == (1, sm90)
             log(f"kernel   {kernel:11s} F={F:5d} {name:10s} "
-                f"rows={cells * 8:5d} groups={len(sizes) + pad:4d} "
+                f"rows={cells * B:5d} groups={len(sizes) + pad:4d} "
                 f"launches={launched[0]} (sm90 {launched[1]}) equal={ok} "
                 f"(tolerance: bit equality) max_abs_err={err}")
             if not ok:
@@ -551,14 +649,8 @@ def run_main_path(device):
         wall = time.perf_counter() - t0
         launches, sm90 = segfanin.launches, segfanin.launches_sm90
         sa = art["scenarios"][0]
-        run, units = sa["run"], sa["units"]
-        bad = [u for u in units if u["exhausted"] or not all(
-            u[k] is not None and u[k] > 0 for k in
-            ("throughput", "mean_ms", "median_ms", "p25_ms", "p75_ms",
-             "p99_ms"))]
-        if bad:
-            raise SystemExit(f"{name}: {len(bad)} cells exhausted or with "
-                             f"non-finite/zero results, e.g. {bad[0]}")
+        run = sa["run"]
+        check_units(name, sa["units"])
         if not launches == sm90 == run["scan_steps"]:
             raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
                              f"of seg_fanin_sm90) for {run['scan_steps']} "
@@ -668,13 +760,7 @@ def run_branches(device):
         launches, sm90 = segfanin.launches, segfanin.launches_sm90
         sa = art["scenarios"][0]
         run, units = sa["run"], sa["units"]
-        bad = [u for u in units if u["exhausted"] or not all(
-            u[k] is not None and u[k] > 0 for k in
-            ("throughput", "mean_ms", "median_ms", "p25_ms", "p75_ms",
-             "p99_ms"))]
-        if bad:
-            raise SystemExit(f"{sc.name}: {len(bad)} cells exhausted or "
-                             f"with non-finite/zero results, e.g. {bad[0]}")
+        check_units(sc.name, units)
         if not launches == sm90 == run["scan_steps"]:
             raise SystemExit(f"{sc.name}: {launches} fan-in launches ({sm90} "
                              f"of seg_fanin_sm90) for {run['scan_steps']} "
@@ -792,6 +878,378 @@ def check_branches(device):
                 or worst["rw_rel"] > LAT_REL):
             raise SystemExit(f"{name}: cuda and cpu disagree beyond the "
                              f"parity tolerance: {worst}")
+
+
+# -------------------------------------------------------------- phase 19
+def efanin_case(F, rows, kcap, device, seed):
+    """``seg_fanin_rows``' inputs at the EPaxos layout: rows = cells, one
+    segment of F = n slots a row, the coordinator's slot +inf, arrivals on
+    a 2**-8 grid (ties), coef = the coordinator's backlog W_C (zero in a
+    quarter of the rows), scalars [-0.5, 0, c, L1], cap ``kcap``."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    vals = 1.0 + torch.floor(torch.rand(rows, F, generator=g) * 256) / 256
+    coord = torch.randint(0, F, (rows,), generator=g)
+    vals[torch.arange(rows), coord] = math.inf
+    wc = 2e-3 * torch.rand(rows, generator=g)
+    wc[torch.rand(rows, generator=g) < 0.25] = 0.0
+    coef = wc[:, None].expand(rows, F)
+    L1 = 1.0 - 1e-3 * torch.rand(rows, generator=g)
+    scal = torch.stack((torch.full((rows,), -0.5), torch.zeros(rows),
+                        torch.full((rows,), 2e-5), L1), dim=1)
+    to = lambda t, dt=torch.float32: t.to(dt).contiguous().to(device)
+    return (to(vals), to(coef), to(torch.zeros(rows, F), torch.int32),
+            to(torch.full((rows, F), kcap), torch.int32), to(scal), 1)
+
+
+def check_efanin(device):
+    """Phase 19: the sm90 per-slot entry against the plain version at the
+    EPaxos layouts, bit for bit, one launch a call; timed at 8 x 25 (a
+    conflict grid at N=25) and 4,096 x 17 (a megagrid chunk at N=17).
+
+    Two bounds: the per-slot interface's (vals, coef, segid and kcap read
+    as (rows, F), the (rows, F) output written) and the EPaxos path's,
+    which needs only vals (rows, F), six values a row (W_C, the four
+    scalars, the cap) and one output a row."""
+    import torch
+    from repro_torch.core.quorums import fast_quorum, majority
+    from repro_torch.kernels import segfanin
+    from repro_torch.kernels.ref import seg_fanin_rows_ref
+    worst = 0.0
+    for F in EFANIN_F:
+        for rows in EFANIN_ROWS:
+            for what, kcap in (("fq-2", fast_quorum(F) - 2),
+                               ("maj-2", majority(F) - 2)):
+                args = efanin_case(F, rows, kcap, device, seed=F * rows)
+                want = seg_fanin_rows_ref(*args)
+                before = segfanin.launches_sm90
+                got = segfanin.seg_fanin_rows(*args)
+                launched = segfanin.launches_sm90 - before
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                worst = max(worst, err)
+                ok = same_bits(got, want) and launched == 1
+                log(f"efanin   F={F:3d} rows={rows:5d} kcap={what:5s} "
+                    f"({kcap:2d}) launches={launched} equal={ok} "
+                    f"(tolerance: bit equality) max_abs_err={err}")
+                if not ok:
+                    raise SystemExit(f"seg_fanin_rows != plain version at "
+                                     f"the EPaxos layout F={F} rows={rows} "
+                                     f"{what}")
+    floor_ms, _ = graph_ms(lambda: segfanin.empty_launch(device))
+    timing = {}
+    for name, rows, F in EFANIN_TIMED:
+        args = efanin_case(F, rows, fast_quorum(F) - 2, device, seed=1)
+        dev_ms, replayed = graph_ms(lambda: segfanin.seg_fanin_rows(*args))
+        eager = segfanin.seg_fanin_rows(*args)
+        torch.cuda.synchronize()
+        if not same_bits(replayed, eager):
+            raise SystemExit(f"seg_fanin_rows at {name}: the graph replay's "
+                             f"output != an eager launch's")
+        host_ms = time_ms(lambda: segfanin.seg_fanin_rows(*args), 200)
+        plain_ms = time_ms(lambda: seg_fanin_rows_ref(*args), 20, warmup=3)
+        nbytes = 4 * (3 * rows * F + 2 * rows * F + 4 * rows)
+        path_bytes = 4 * (rows * F + 7 * rows)
+        ops = rows * (2 * F * F + 9 * F)
+        bytes_ms = nbytes / HBM_BYTES_S * 1e3
+        path_bytes_ms = path_bytes / HBM_BYTES_S * 1e3
+        ops_ms = ops / F32_OPS_S * 1e3
+        bound = max(bytes_ms, ops_ms)
+        path_bound = max(path_bytes_ms, ops_ms)
+        timing[name] = dict(ms=dev_ms, host_ms=host_ms, plain_ms=plain_ms,
+                            bound_ms=bound, path_bound_ms=path_bound)
+        log(f"efanin   timing {name} rows={rows} F={F}: device {dev_ms:.6f} "
+            f"ms a launch (200 in a CUDA graph; replay == eager: True), "
+            f"{dev_ms / floor_ms:.2f}x the empty kernel ({floor_ms:.6f}); "
+            f"interface bound {bound:.6f} ms ({nbytes} bytes = "
+            f"{bytes_ms:.6f} ms, {ops} ops = {ops_ms:.6f} ms), "
+            f"{100 * bound / dev_ms:.2f}% of it; EPaxos path bound "
+            f"{path_bound:.6f} ms ({path_bytes} bytes = {path_bytes_ms:.6f} "
+            f"ms), {100 * path_bound / dev_ms:.2f}% of it; host-launched "
+            f"{host_ms:.6f} ms a call; plain version {plain_ms:.6f} ms")
+    return worst, timing
+
+
+# -------------------------------------------------------------- phase 20
+def check_units(name, units):
+    """No cell exhausted, and every throughput and latency finite and
+    positive."""
+    bad = [u for u in units if u["exhausted"] or not all(
+        u[k] is not None and u[k] > 0 for k in
+        ("throughput", "mean_ms", "median_ms", "p25_ms", "p75_ms",
+         "p99_ms"))]
+    if bad:
+        raise SystemExit(f"{name}: {len(bad)} cells exhausted or with "
+                         f"non-finite/zero results, e.g. {bad[0]}")
+
+
+def run_grids(device, scenarios, tag, rounds, bounds=None):
+    """Full grids through ``run_scenarios`` on cuda: ``rounds`` sm90
+    fan-in launches a scan step (2 for EPaxos, 1 for the group kernel),
+    and the runner's own launch count equal to it; no cell exhausted or
+    non-finite.  Returns the launches."""
+    import torch
+    from repro_torch.experiments import runner
+    from repro_torch.kernels import segfanin
+    total = 0
+    for sc in scenarios:
+        segfanin.launches = segfanin.launches_sm90 = 0
+        t0 = time.perf_counter()
+        art = runner.run_scenarios([sc], quick=False, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, sm90 = segfanin.launches, segfanin.launches_sm90
+        sa = art["scenarios"][0]
+        run = sa["run"]
+        check_units(sc.name, sa["units"])
+        if not (launches == sm90 == run["fanin_launches"]
+                == rounds * run["scan_steps"]):
+            raise SystemExit(f"{sc.name}: {launches} fan-in launches ({sm90} "
+                             f"of seg_fanin_sm90, the runner counted "
+                             f"{run['fanin_launches']}) for "
+                             f"{run['scan_steps']} scan steps x {rounds}")
+        tput = sa["summary"]["throughput"]["mean"]
+        log(f"{tag:8s} {sc.name:36s} cells={run['cells']:3d} "
+            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:6d} "
+            f"wall={wall:.3f}s cells/s={run['cells'] / wall:.3f} "
+            f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
+            f"tput_mean={tput}")
+        total += launches
+    for name, (lo, hi) in (bounds or {}).items():
+        (sc,) = [s for s in scenarios if s.name == name]
+        art = runner.run_scenarios([sc], quick=True, device=device,
+                                   ignore_quick_skip=True)
+        mean = art["scenarios"][0]["summary"]["throughput"]["mean"]
+        log(f"{tag:8s} {name} quick mean throughput {mean} "
+            f"{'inside' if lo <= mean <= hi else 'OUTSIDE'} [{lo}, {hi}]")
+        if not lo <= mean <= hi:
+            raise SystemExit(f"{name}: quick mean throughput {mean} outside "
+                             f"[{lo}, {hi}]")
+    return total
+
+
+def gate_windows(names):
+    with open(os.path.join(ROOT, "benchmarks", "reference_bounds.json")) as f:
+        bounds = json.load(f)["bounds"]
+    return {n: bounds[n] for n in names}
+
+
+def run_conflict(device):
+    """Phase 20: the 8 conflict/*/batch full grids."""
+    from repro_torch.experiments import registry
+    scenarios = registry.select("conflict")
+    if len(scenarios) != 8:
+        raise SystemExit(f"conflict: {len(scenarios)} scenarios, expected 8")
+    return run_grids(device, scenarios, "conflict", 2,
+                     gate_windows([CONFLICT_CHECK]))
+
+
+# -------------------------------------------------------------- phase 21
+def card_vs_cpu(tag, name, run):
+    """``run(device, kernel)`` -> units: card == rerun == the plain
+    fan-in's run on the card, bit for bit; card vs CPU within phase 6's
+    tolerance."""
+    t0 = time.perf_counter()
+    a, b, p = run("cuda", "auto"), run("cuda", "auto"), run("cuda", "torch")
+    card_s = time.perf_counter() - t0
+    if a != b:
+        raise SystemExit(f"{name}: two runs on the card differ")
+    if a != p:
+        raise SystemExit(f"{name}: kernel run != plain-version run on the "
+                         f"card")
+    t0 = time.perf_counter()
+    c = run("cpu", "auto")
+    cpu_s = time.perf_counter() - t0
+    worst = {"count": 0, "committed": 0, "lat_rel": 0.0, "msg_abs": 0.0,
+             "timeline": 0, "backlog_n": 0, "backlog_rel": 0.0,
+             "rw_count": 0, "rw_rel": 0.0}
+    for x, y in zip(a, c):
+        unit_gap(x, y, worst)
+    same = a == c
+    log(f"{tag:8s} {name} ({len(a)} cells): cuda == cuda rerun, kernel == "
+        f"plain version (3 card runs {card_s:.2f}s, cpu {cpu_s:.2f}s); "
+        f"cuda == cpu bit for bit: {same}; worst {worst}")
+    if (worst["count"] > COUNT_SLACK or worst["committed"] > COUNT_SLACK
+            or worst["lat_rel"] > LAT_REL or worst["msg_abs"] > MSG_ABS):
+        raise SystemExit(f"{name}: cuda and cpu disagree beyond the parity "
+                         f"tolerance: {worst}")
+
+
+def check_conflict(device):
+    """Phase 21: quick conflict/N=25/c=0.1/batch and a zipfian EPaxos
+    grid."""
+    from repro_torch.core import vectorsim
+    from repro_torch.core.workload import WorkloadConfig
+    from repro_torch.experiments import registry
+    (sc,) = registry.select(CONFLICT_CHECK)
+    kw = branch_kwargs(sc, sc.resolve(True))
+    card_vs_cpu("ccheck", f"{CONFLICT_CHECK} quick",
+                lambda dev, kernel: vectorsim.simulate_scenario(
+                    sc.protocol, sc.n, kernel=kernel, device=dev, **kw))
+    wl = WorkloadConfig(key_dist="zipfian", zipf_theta=0.99)
+    card_vs_cpu("ccheck", "epaxos N=25 zipfian(0.99) 40 clients x 2 seeds",
+                lambda dev, kernel: vectorsim.simulate_scenario(
+                    "epaxos", 25, workload=wl, clients=(40,),
+                    seeds=(1, 2), duration=0.2, warmup=0.1,
+                    kernel=kernel, device=dev))
+
+
+# -------------------------------------------------------------- phase 22
+def chunked_equals_unchunked(device):
+    """simulate_grid_sharded in 64-cell chunks == one simulate_grid call,
+    bit for bit, on a group and an EPaxos bucket of the study (3 chunks
+    and a ragged tail)."""
+    import numpy as np
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import megagrid
+    pts, buckets = megagrid.plan(MEGAGRID_CELLS)
+    for want_key in (("group", 8, 16, "wan3"), ("epaxos", 17, 4, "lan")):
+        (pairs,) = [p for b, p in buckets if b == want_key]
+        pis = sorted({pi for pi, _ in pairs})
+        cfgs = [pts[pi]["cfg"] for pi in pis]
+        grid = [(pis.index(pi), k, s) for pi, k in pairs
+                for s in range(40)][:3 * 64 + 17]
+        t0 = time.perf_counter()
+        want = vectorsim.simulate_grid(cfgs, grid, 0.1, 0.05, device=device)
+        t1 = time.perf_counter()
+        got = vectorsim.simulate_grid_sharded(cfgs, grid, 0.1, 0.05,
+                                              chunk=64, device=device)
+        t2 = time.perf_counter()
+        same = [k for k in want if k not in ("scan_steps",)
+                and not np.array_equal(want[k], got[k], equal_nan=True)]
+        chunks = got["sharding"]["chunks"]
+        log(f"megagrid chunked == unchunked {want_key}: {len(grid)} cells, "
+            f"{len(cfgs)} configs, {len(chunks)} chunks of 64 (retries "
+            f"{[m['retries'] for m in chunks]}); fields that differ: "
+            f"{same or 'none'}; one call {t1 - t0:.2f}s "
+            f"({want['scan_steps']} scan steps), chunked {t2 - t1:.2f}s "
+            f"({got['scan_steps']})")
+        if same:
+            raise SystemExit(f"chunked != unchunked at {want_key}: {same}")
+
+
+def kernel_equals_plain_chunks(device):
+    """One 4,096-cell chunk of each bucket in ``PLAIN_CHUNKS`` through
+    ``simulate_grid_sharded`` with the sm90 fan-in and with the plain one
+    (``kernel="torch"``) on the card: bit for bit.  A group chunk takes
+    seeds round-robin over the bucket's (point, clients) pairs, so that it
+    has the bucket's padded shapes; an EPaxos bucket of the study is
+    smaller than a chunk and runs whole, padded as the study pads it."""
+    import numpy as np
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import megagrid
+    from repro_torch.kernels import segfanin
+    pts, buckets = megagrid.plan(MEGAGRID_CELLS)
+    for want_key in PLAIN_CHUNKS:
+        (pairs,) = [p for b, p in buckets if b == want_key]
+        pis = sorted({pi for pi, _ in pairs})
+        cfgs = [pts[pi]["cfg"] for pi in pis]
+        full = [(pis.index(pi), k, s) for pi, k in pairs
+                for s in range(pts[pi]["seeds"])]
+        per = -(-4096 // len(pairs))
+        grid = (full if len(full) <= 4096 else
+                [(pis.index(pi), k, s) for s in range(per)
+                 for pi, k in pairs][:4096])
+        if vectorsim._pad_spec(cfgs, grid) != vectorsim._pad_spec(cfgs, full):
+            raise SystemExit(f"{want_key}: the chunk's shapes are not the "
+                             f"bucket's")
+        runs, walls, sm90 = {}, {}, {}
+        for kernel in ("auto", "torch"):
+            before = segfanin.launches_sm90
+            t0 = time.perf_counter()
+            runs[kernel] = vectorsim.simulate_grid_sharded(
+                cfgs, grid, 0.1, 0.05, kernel=kernel, chunk=4096,
+                device=device)
+            walls[kernel] = time.perf_counter() - t0
+            sm90[kernel] = segfanin.launches_sm90 - before
+        a, b = runs["auto"], runs["torch"]
+        rounds = 2 if want_key[0] == "epaxos" else 1
+        differ = [k for k in a if k != "sharding"
+                  and not np.array_equal(a[k], b[k], equal_nan=True)]
+        log(f"megagrid sm90 == plain fan-in {want_key}: a chunk of "
+            f"{a['sharding']['chunk']} cells ({len(grid)} of the study's, "
+            f"{len(cfgs)} configs), {a['scan_steps']} scan steps, "
+            f"launches_sm90 {sm90['auto']} (plain run {sm90['torch']}); "
+            f"fields that differ: {differ or 'none'}; sm90 "
+            f"{walls['auto']:.2f}s, plain {walls['torch']:.2f}s")
+        if differ or sm90 != {"auto": rounds * a["scan_steps"], "torch": 0}:
+            raise SystemExit(f"megagrid chunk {want_key}: the sm90 fan-in's "
+                             f"run != the plain fan-in's ({differ}, {sm90})")
+
+
+def run_megagrid(device):
+    """Phase 22: the 4 slices, chunked == unchunked, the sm90 fan-in ==
+    the plain one on whole chunks, then the study."""
+    from repro_torch.experiments import megagrid, registry
+    from repro_torch.kernels import segfanin
+    slices = registry.select("megagrid")
+    if len(slices) != 4:
+        raise SystemExit(f"megagrid: {len(slices)} slices, expected 4")
+    launches = run_grids(device, slices, "megagrid", 1,
+                         gate_windows(MEGAGRID_WINDOWS))
+    chunked_equals_unchunked(device)
+    kernel_equals_plain_chunks(device)
+    segfanin.launches = segfanin.launches_sm90 = 0
+    art = megagrid.run_megagrid(
+        MEGAGRID_CELLS, device=device,
+        progress=lambda s: log(f"megagrid {s}"))
+    mg = art["megagrid"]
+    sm90 = segfanin.launches_sm90
+    rounds = sum(b["scan_steps"] * (2 if b["bucket"][0] == "epaxos" else 1)
+                 for b in mg["buckets"])
+    for b in mg["buckets"]:
+        log(f"megagrid bucket {'/'.join(b['bucket']):22s} cells={b['cells']:6d} "
+            f"chunks={b['chunks']} scan_steps={b['scan_steps']:5d} "
+            f"retries={b['retries']} wall={b['wall_s']}s "
+            f"stack={b['stack_s']}s exhausted={b['exhausted']}")
+    log(f"megagrid {mg['cells']} cells ({mg['points']} points) in "
+        f"{mg['wall_s']} s: {mg['cells_per_s']} cells/s, "
+        f"{mg['per_cell_ms']} ms a cell on {mg['device']} through "
+        f"{mg['kernel']} ({mg['impl']}, chunk {mg['chunk']}); host stacking "
+        f"{mg['stack_s']} s; scan steps {mg['scan_steps']}; launches_sm90 "
+        f"{sm90} (expected {rounds}); exhausted after retry "
+        f"{mg['exhausted']}; roofline {mg['roofline']}")
+    if mg["cells"] < MEGAGRID_CELLS or mg["exhausted"] or sm90 != rounds \
+            or segfanin.launches != sm90:
+        raise SystemExit("megagrid run failed its checks")
+    bad = [s["name"] for s in art["scenarios"]
+           for p in s["points"] if p["throughput"]["mean"] is None
+           or not p["throughput"]["mean"] > 0]
+    if bad:
+        raise SystemExit(f"megagrid: points without a finite throughput: "
+                         f"{bad[:5]}")
+    return launches + sm90
+
+
+# -------------------------------------------------------------- phase 23
+def check_jaxsim(device):
+    """Phase 23: relay_load_mc(25, 3, 8192) card == CPU bit for bit,
+    latency_curve within 1e-6 relative."""
+    import numpy as np
+    from repro_torch import prng
+    from repro_torch.core import jaxsim
+    a = jaxsim.relay_load_mc(prng.PRNGKey(0), 25, 3, 8192, device=device)
+    b = jaxsim.relay_load_mc(prng.PRNGKey(0), 25, 3, 8192, device="cpu")
+    diff = [k for k in a if not same_bits(a[k].cpu(), b[k])]
+    worst = 0.0
+    for proto, r in (("paxos", 24), ("pigpaxos", 3), ("epaxos", 1)):
+        off = np.linspace(100.0, 60000.0, 64, dtype=np.float32)
+        x = jaxsim.latency_curve(off, 25, r, protocol=proto, device=device)
+        y = jaxsim.latency_curve(off, 25, r, protocol=proto, device="cpu")
+        for k in x:
+            u, v = x[k].cpu().numpy(), y[k].numpy()
+            if not np.array_equal(np.isfinite(u), np.isfinite(v)):
+                raise SystemExit(f"latency_curve {proto} {k}: saturation "
+                                 f"differs between cuda and cpu")
+            fin = np.isfinite(v)
+            worst = max(worst, float(np.max(np.abs(u[fin] - v[fin])
+                                            / np.abs(v[fin]))))
+    log(f"jaxsim   relay_load_mc(25, 3, 8192): cuda == cpu bit for bit on "
+        f"{sorted(a)}: {not diff}; follower mean {float(a['follower_mean'])}"
+        f", busiest {float(a['maxavg'])}; latency_curve cuda vs cpu worst "
+        f"relative {worst} (tolerance 1e-6)")
+    if diff or worst > 1e-6:
+        raise SystemExit(f"jaxsim: cuda and cpu differ ({diff}, {worst})")
 
 
 # --------------------------------------------------------------- phase 2
@@ -1899,6 +2357,12 @@ def main() -> int:
     phase("6 check", cross_check, device)
     launches += phase("17 branches", run_branches, device)
     phase("18 bcheck", check_branches, device)
+    efanin = phase("19 efanin", check_efanin, device)
+    conflict_launches = phase("20 conflict", run_conflict, device)
+    phase("21 ccheck", check_conflict, device)
+    mega_launches = phase("22 megagrid", run_megagrid, device)
+    phase("23 jaxsim", check_jaxsim, device)
+    launches += conflict_launches + mega_launches
 
     flash_err = phase("7 flash", check_flash, device)
     flash_timing = phase("8 timing", time_flash, device)
@@ -1926,13 +2390,13 @@ def main() -> int:
           ssm_timing["ms"])
     phase("16 smoke", check_smoke_serve, device, RWKV_ARCH, "auto", ssm_scan,
           RWKV_SMOKE_LOGIT_TOL)
-    log(f"wall     phases 2-18 together: {sum(walls.values()):.2f} s")
+    log(f"wall     phases 2-23 together: {sum(walls.values()):.2f} s")
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",
               "replaces": "src/repro/kernels/segfanin.py:46",
-              "launches": launches, "max_abs_err": err, **timing,
-              "library_ms": None}
+              "launches": launches, "max_abs_err": max(err, efanin[0]),
+              **timing, "epaxos_timing": efanin[1], "library_ms": None}
     flash = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
              "replaces": "src/repro/kernels/flash_attention.py:22",

@@ -1,14 +1,16 @@
-"""Batched round-level simulation backend, group kernel (port of
+"""Batched round-level simulation backend (port of
 ``repro.core.vectorsim``).
 
-The per-request message flow of Paxos / PigPaxos is pure array math: a
-step loop over request bursts, with every grid cell on one leading axis,
-so a whole clients x seeds grid advances together on the device.  The
-model is the reference's, line for line (see its module docstring):
+The per-request message flow of Paxos / PigPaxos / EPaxos is pure array
+math: a step loop over request bursts, with every grid cell on one leading
+axis, so a whole clients x seeds grid advances together on the device.
+The model is the reference's, line for line (see its module docstring):
 closed-loop client credit, a Lindley-chain leader FIFO over each burst,
 rotating relay choice, fluid follower backlogs with an M/D/1 floor, the
 relay reply fan-in order statistic (the ``seg_fanin`` kernel) and the
-aggregate quorum at the leader.
+aggregate quorum at the leader; for EPaxos a random command leader per
+request, the fast-quorum and slow-path fan-ins (the same order statistic,
+one segment a cell) and the per-key conflict and dependency carry.
 
 Translation from the JAX reference:
 
@@ -17,11 +19,17 @@ Translation from the JAX reference:
   preallocated (C, steps, B) tensors;
 * ``jax.random`` -> ``repro_torch.prng`` (the same threefry bits);
 * ``lax.top_k(-ready, B)`` -> the first B of a stable ascending sort;
+  ``argmin(ready)`` -> ``torch.argmin`` (the first of equal minima);
 * float scatter-adds -> dense per-slot masks, accumulated row by row in
   the reference's order (no float atomics, so the same key gives the same
   output on the card too); the scatter-adds that only add small integers
   (up-member counts, the selected relay's position, timeline counts) stay
-  scatter-adds, since an integer sum is exact in any order.
+  scatter-adds, since an integer sum is exact in any order;
+* float sums over a cell's own axis (the summary's latency sum, EPaxos's
+  mean propagation base) run in one fixed order, so that a cell's bits
+  do not depend on how many cells share its tensors: chunked runs
+  (``simulate_grid_sharded``) equal one ``simulate_grid`` call bit for
+  bit.
 
 The group kernel carries every branch of the reference's: LAN and WAN
 region latencies, leader batching (``batch_m``), fault masks (deferred
@@ -30,8 +38,9 @@ timeline), leased leader reads (the varying-service leader chain and the
 read/write split) and the obs leader-backlog series.  Each optional
 branch is static per grid, as in the reference: with every one off, a
 step issues the LAN, fault-free, write-path operations alone.  The
-EPaxos kernel is not ported yet: ``build_config`` raises
-``NotImplementedError`` for it, naming the ROADMAP item that ports it.
+EPaxos kernel takes LAN and WAN topologies and the three key
+distributions (uniform, zipfian, hot-key conflict); batching, leased
+reads and fault masks are refused for it in the reference's words.
 """
 from __future__ import annotations
 
@@ -45,11 +54,13 @@ import torch
 from .. import prng
 from ..convert import cells_from_numpy
 from ..device import resolve_device
-from ..kernels import ops
+from ..kernels import ops, segfanin
+from ..kernels.ref import seg_fanin_rows_ref
 from .messages import HEADER_BYTES, CostModel
 from .pig import partition_followers, required_per_group
 from .quorums import fast_quorum, majority
 from .segscan import seg_cumsum
+from .workload import zipf_cdf
 
 # measurement harness constants — identical to the reference
 _DRAIN_S = 0.2          # post-stop drain window (Cluster.measure)
@@ -66,16 +77,14 @@ _DRAW_BLOCK_ELEMS = 1 << 21
 KERNELS = ("auto", "torch")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP queue 1, "
-        f"{item}); run it on the JAX reference, repro.core.vectorsim")
-
-
 # ===================================================================== config
 @dataclasses.dataclass
 class SimConfig:
-    """One protocol deployment, lowered to arrays (leader = node 0)."""
+    """One protocol deployment, lowered to arrays (leader = node 0).
+
+    ``kind`` selects the kernel: "group" covers Paxos (singleton groups,
+    direct-message costs) and PigPaxos (relay groups); "epaxos" is the
+    symmetric random-leader kernel."""
     kind: str
     n: int
     members: np.ndarray        # (r, g) follower node ids, -1 padding
@@ -92,8 +101,14 @@ class SimConfig:
     # +inf padding, and per-node whole-run extra one-way latency (n,)
     down: Optional[np.ndarray] = None
     slow: Optional[np.ndarray] = None
-    # leased-leader-read model: fraction of requests served locally at the
-    # leader under a held lease (0 = write path only)
+    # EPaxos conflict model (epaxos kernel only): the workload's key
+    # distribution — 0 uniform, 1 zipfian (key_cdf), 2 hot-key conflict
+    key_mode: int = 0
+    n_keys: int = 1000
+    conflict_rate: float = 0.0
+    key_cdf: Optional[np.ndarray] = None
+    # leased-leader-read model (group kernel only): fraction of requests
+    # served locally at the leader under a held lease (0 = write path only)
     read_ratio: float = 0.0
 
     @property
@@ -133,9 +148,11 @@ def build_config(protocol: str, n: int, pig=None, topo=None, workload=None,
                  masks: Optional[Dict[str, np.ndarray]] = None,
                  batch_m: int = 1) -> SimConfig:
     """Lower a (protocol, n, PigConfig, Topology, WorkloadConfig)
-    deployment to the array form the group kernel consumes.  ``masks`` is
-    the fault lowering produced by ``repro_torch.faults.FaultPlan.to_masks``
-    (down-windows and slow vectors).
+    deployment to the array form the batched kernels consume.  ``masks``
+    is the fault lowering produced by ``repro_torch.faults.FaultPlan
+    .to_masks`` (down-windows and slow vectors; group kernel only).  An
+    EPaxos deployment carries its seven costs and the workload's key
+    distribution.
 
     ``batch_m`` models leader-side request batching with a full batch of m
     on every slot: one "request" through the kernel is a whole batch, with
@@ -144,8 +161,7 @@ def build_config(protocol: str, n: int, pig=None, topo=None, workload=None,
     aggregates, m serial client replies).  Callers divide the client count
     by m and scale throughput back up; ``simulate_scenario`` does both.
 
-    The reference's boundary ``ValueError``s keep their wording; the EPaxos
-    kernel raises ``NotImplementedError``."""
+    The reference's boundary ``ValueError``s keep their wording."""
     cm = cost or CostModel()
     base, pb = cm.base, cm.per_byte
     w = _expected_wires(workload)
@@ -217,7 +233,42 @@ def build_config(protocol: str, n: int, pig=None, topo=None, workload=None,
         jitter = float(topo.jitter) if topo is not None else 0.05e-3
         region_latency = np.asarray([[blat]], dtype=np.float64)
     if protocol == "epaxos":
-        raise _not_ported("the EPaxos kernel", "item 7")
+        # conflict model inputs: the workload's key distribution decides the
+        # per-request conflict draw (interfering in-flight instances route
+        # conflicted requests through the Paxos-accept slow path)
+        key_mode, n_keys, crate, cdf = 0, 1000, 0.0, None
+        if workload is not None:
+            n_keys = int(getattr(workload, "n_keys", 1000))
+            kd = getattr(workload, "key_dist", "uniform")
+            if kd == "zipfian":
+                key_mode = 1
+                cdf = zipf_cdf(n_keys, float(workload.zipf_theta))
+            elif kd == "conflict":
+                key_mode = 2
+                crate = float(workload.conflict_rate)
+        dep = cm.epaxos_extra_per_node * n
+        costs = {
+            "c_req": base + pb * w["req"],
+            # PreAccept / PreAcceptReply / ECommit all carry the O(N)
+            # dependency bookkeeping term (CostModel §5.3)
+            "c_pa": base + pb * (HEADER_BYTES + w["cmd"] + 12 + 8 * n) + dep,
+            "c_par": base + pb * (HEADER_BYTES + 12 + 8 * n) + dep,
+            "c_com": base + pb * (HEADER_BYTES + w["cmd"] + 12 + 8 * n) + dep,
+            "c_replycl": base + pb * w["reply_cl"],
+            # slow path (conflicts): EAccept carries the same O(N) payload
+            # as PreAccept; EAcceptReply is a fixed-size ack
+            "c_acc": base + pb * (HEADER_BYTES + w["cmd"] + 12 + 8 * n) + dep,
+            "c_accr": base + pb * (HEADER_BYTES + 16),
+        }
+        return SimConfig(
+            kind="epaxos", n=n,
+            members=np.zeros((1, 1), np.int32), sizes=np.zeros(1, np.int32),
+            thresh=np.zeros(1, np.int32), static_relay=False,
+            majority=majority(n), region_of=region_of,
+            region_latency=region_latency, jitter=jitter, costs=costs,
+            label=label or f"epaxos/N={n}",
+            key_mode=key_mode, n_keys=n_keys, conflict_rate=crate,
+            key_cdf=cdf)
 
     followers = [i for i in range(1, n)]
     if protocol == "paxos" or pig is None:
@@ -279,6 +330,12 @@ def _estimate_rate(cfg: SimConfig, k: int) -> float:
     reg_lat = cfg.region_latency
     leader_reg = int(cfg.region_of[0])
     b_cl = float(reg_lat[0, leader_reg])
+    if cfg.kind == "epaxos":
+        n = cfg.n
+        per_node = 2.0 * (n - 1) * (c["c_pa"] + c["c_par"] + c["c_com"]) / n
+        cpu_bound = 1.0 / per_node
+        rt = 4 * (b_cl + cfg.jitter) + (n - 1) * c["c_pa"] + 3 * c["c_pa"]
+        return min(cpu_bound, k / rt)
     sizes = cfg.sizes[cfg.sizes > 0].astype(float)
     ng = len(sizes)
     leader_cpu = c["c_req"] + ng * (c["c_fanout"] + c["c_agg"]) + c["c_replycl"]
@@ -306,51 +363,59 @@ def _estimate_rate(cfg: SimConfig, k: int) -> float:
 
 # ================================================================== batching
 def _pad_spec(configs: Sequence[SimConfig], grid) -> Dict[str, int]:
-    """The padded-shape signature a (configs, grid) batch runs under."""
-    return {
+    """The padded-shape signature a (configs, grid) batch runs under.  A
+    chunked run computes it ONCE over the whole grid and passes it to every
+    chunk's ``_stack_cells``, so every chunk has the whole grid's shapes."""
+    kind = configs[0].kind
+    spec = {
         "nreg": max(c.region_latency.shape[0] for c in configs),
         "kmax": max(k for _, k, _ in grid),
         "wmax": max([c.down.shape[1] for c in configs
                      if c.down is not None] + [1]),
-        "rmax": max(c.rmax for c in configs),
-        "fmax": max(c.n - 1 for c in configs),
-        "nkeys_max": 1,     # the group kernel never samples keys
     }
+    if kind == "group":
+        spec["rmax"] = max(c.rmax for c in configs)
+        spec["fmax"] = max(c.n - 1 for c in configs)
+        spec["nmax"] = 1
+        spec["nkeys_max"] = 1   # the group kernel never samples keys
+    else:
+        spec["rmax"] = spec["fmax"] = 1
+        spec["nmax"] = max(c.n for c in configs)
+        spec["nkeys_max"] = max(c.n_keys for c in configs)
+    return spec
 
 
-def _stack_cells(configs: Sequence[SimConfig], grid, duration: float,
-                 warmup: float):
-    """Stack (config_idx, clients, seed) grid points into one batch dict of
-    numpy arrays, key for key the reference's (the EPaxos fields hold their
-    group-kernel values)."""
-    if any(c.kind != "group" for c in configs):
-        raise _not_ported("the EPaxos kernel", "item 7")
-    spec = _pad_spec(configs, grid)
-    nreg, kmax, wmax = spec["nreg"], spec["kmax"], spec["wmax"]
+_CELL_FIELDS = (
+    "sizes", "thresh", "grp", "pos", "gstart", "regF", "reg_lat",
+    "leader_reg", "jitter", "costs",
+    "majority", "n_groups", "static_relay", "k_clients", "key", "stop",
+    "warmup", "duration", "n_followers", "reg_nodes", "fq",
+    "w_follower", "downL", "downF", "slowF", "slowL",
+    "key_mode", "n_keys", "conflict_rate", "key_cdf", "read_ratio")
+
+
+def _config_row(c: SimConfig, kind: str, spec: Dict[str, int], stop: float,
+                warmup: float, duration: float) -> Dict[str, np.ndarray]:
+    """One config's stacked fields, the reference's per-cell values for
+    every field but ``k_clients`` and ``key`` (the only two that vary
+    between the cells of one config)."""
+    nreg, wmax = spec["nreg"], spec["wmax"]
     rmax, fmax = spec["rmax"], spec["fmax"]
-    stop = warmup + duration
-    cells: Dict[str, list] = {k: [] for k in (
-        "sizes", "thresh", "grp", "pos", "gstart", "regF", "reg_lat",
-        "leader_reg", "jitter", "costs",
-        "majority", "n_groups", "static_relay", "k_clients", "key", "stop",
-        "warmup", "duration", "n_followers", "reg_nodes", "fq",
-        "w_follower", "downL", "downF", "slowF", "slowL",
-        "key_mode", "n_keys", "conflict_rate", "key_cdf", "read_ratio")}
-    for ci, k, seed in grid:
-        c = configs[ci]
-        sizes = np.zeros(rmax, np.int32)
-        thresh = np.zeros(rmax, np.int32)
-        # flat group-contiguous follower layout (padding at the tail keeps
-        # segment scans confined to real slots)
-        grp = np.full(fmax, max(rmax - 1, 0), np.int32)
-        pos = np.full(fmax, 1, np.int32)      # non-zero: never a segment start
-        gstart = np.zeros(rmax, np.int32)
-        regf = np.zeros(fmax, np.int32)
-        # fault masks in flat-slot layout (inf-padded = never down)
-        downf = np.full((fmax, wmax, 2), np.inf, np.float32)
-        slowf = np.zeros(fmax, np.float32)
-        downl = np.full((wmax, 2), np.inf, np.float32)
-        slowl = np.float32(0.0)
+    nmax, nkeys_max = spec["nmax"], spec["nkeys_max"]
+    sizes = np.zeros(rmax, np.int32)
+    thresh = np.zeros(rmax, np.int32)
+    # flat group-contiguous follower layout (padding at the tail keeps
+    # segment scans confined to real slots)
+    grp = np.full(fmax, max(rmax - 1, 0), np.int32)
+    pos = np.full(fmax, 1, np.int32)      # non-zero: never a segment start
+    gstart = np.zeros(rmax, np.int32)
+    regf = np.zeros(fmax, np.int32)
+    # fault masks in flat-slot layout (inf-padded = never down)
+    downf = np.full((fmax, wmax, 2), np.inf, np.float32)
+    slowf = np.zeros(fmax, np.float32)
+    downl = np.full((wmax, 2), np.inf, np.float32)
+    slowl = np.float32(0.0)
+    if kind == "group":
         sizes[:c.rmax] = c.sizes
         thresh[:c.rmax] = c.thresh
         off = 0
@@ -371,39 +436,8 @@ def _stack_cells(configs: Sequence[SimConfig], grid, duration: float,
             downl[:c.down.shape[1]] = c.down[0]
         if c.slow is not None:
             slowl = np.float32(c.slow[0])
-        rl = np.zeros((nreg, nreg), np.float64)
-        nr = c.region_latency.shape[0]
-        rl[:nr, :nr] = c.region_latency
-        cells["sizes"].append(sizes)
-        cells["thresh"].append(thresh)
-        cells["grp"].append(grp)
-        cells["pos"].append(pos)
-        cells["gstart"].append(gstart)
-        cells["regF"].append(regf)
-        cells["downL"].append(downl)
-        cells["downF"].append(downf)
-        cells["slowF"].append(slowf)
-        cells["slowL"].append(slowl)
-        cells["reg_lat"].append(rl.astype(np.float32))
-        cells["leader_reg"].append(np.int32(c.region_of[0]))
-        cells["jitter"].append(np.float32(c.jitter))
-        cells["costs"].append(np.asarray(
-            [c.costs[o] for o in ("c_req", "c_fanout", "c_rel", "c_repl",
-                                  "c_agg", "c_replycl")], np.float32))
-        cells["key_mode"].append(np.int32(0))
-        cells["n_keys"].append(np.int32(1))
-        cells["conflict_rate"].append(np.float32(0.0))
-        cells["key_cdf"].append(np.ones(spec["nkeys_max"], np.float32))
-        cells["majority"].append(np.int32(c.majority))
-        cells["n_groups"].append(np.int32(int((c.sizes > 0).sum())))
-        cells["static_relay"].append(np.bool_(c.static_relay))
-        cells["k_clients"].append(np.int32(k))
-        cells["key"].append(
-            prng.PRNGKey(int(seed) * 1_000_003 + ci).numpy().astype(np.uint32))
-        cells["stop"].append(np.float32(stop))
-        cells["warmup"].append(np.float32(warmup))
-        cells["duration"].append(np.float32(duration))
-        cells["n_followers"].append(np.int32(c.n - 1))
+        order = ("c_req", "c_fanout", "c_rel", "c_repl", "c_agg",
+                 "c_replycl")
         szs = c.sizes[c.sizes > 0].astype(float)
         wf = (len(szs) * (c.costs["c_fanout"] + c.costs["c_agg"])
               + 2.0 * float((szs - 1).sum())
@@ -411,12 +445,82 @@ def _stack_cells(configs: Sequence[SimConfig], grid, duration: float,
         # leased reads add no follower work: the utilization estimate
         # sees per-op work scaled to the write fraction
         wf *= 1.0 - c.read_ratio
-        cells["w_follower"].append(np.float32(wf))
-        cells["read_ratio"].append(np.float32(c.read_ratio))
-        cells["reg_nodes"].append(np.zeros(1, np.int32))
-        cells["fq"].append(np.int32(fast_quorum(c.n)))
-    batch = {k: np.stack(v) for k, v in cells.items()}
-    return batch, "group", kmax
+    else:
+        order = ("c_req", "c_pa", "c_par", "c_com", "c_replycl", "c_acc",
+                 "c_accr")
+        wf = 0.0
+    rl = np.zeros((nreg, nreg), np.float64)
+    nr = c.region_latency.shape[0]
+    rl[:nr, :nr] = c.region_latency
+    cdf = np.ones(nkeys_max, np.float32)
+    if kind == "epaxos" and c.key_cdf is not None:
+        cdf[:len(c.key_cdf)] = np.asarray(c.key_cdf, np.float32)
+    return {
+        "sizes": sizes, "thresh": thresh, "grp": grp, "pos": pos,
+        "gstart": gstart, "regF": regf, "downL": downl, "downF": downf,
+        "slowF": slowf, "slowL": slowl,
+        "reg_lat": rl.astype(np.float32),
+        "leader_reg": np.int32(c.region_of[0]),
+        "jitter": np.float32(c.jitter),
+        "costs": np.asarray([c.costs[o] for o in order], np.float32),
+        "key_mode": np.int32(c.key_mode),
+        "n_keys": np.int32(c.n_keys if kind == "epaxos" else 1),
+        "conflict_rate": np.float32(c.conflict_rate),
+        "key_cdf": cdf,
+        "majority": np.int32(c.majority),
+        "n_groups": np.int32(int((c.sizes > 0).sum())),
+        "static_relay": np.bool_(c.static_relay),
+        "stop": np.float32(stop), "warmup": np.float32(warmup),
+        "duration": np.float32(duration),
+        "n_followers": np.int32(c.n - 1),
+        "w_follower": np.float32(wf),
+        "read_ratio": np.float32(c.read_ratio),
+        "reg_nodes": np.asarray(c.region_of[:nmax] if kind == "epaxos"
+                                else np.zeros(1), np.int32),
+        "fq": np.int32(fast_quorum(c.n)),
+    }
+
+
+def _batch_kind(configs: Sequence[SimConfig]) -> str:
+    """The kernel every config of a batch runs ("group" or "epaxos")."""
+    kind = configs[0].kind
+    if any(c.kind != kind for c in configs):
+        raise ValueError("cannot mix group and epaxos kernels in one batch")
+    return kind
+
+
+def _stack_cells(configs: Sequence[SimConfig], grid, duration: float,
+                 warmup: float, pad_to: Optional[Dict[str, int]] = None):
+    """Stack (config_idx, clients, seed) grid points into one batch dict of
+    numpy arrays, key for key and bit for bit the reference's.
+
+    ``pad_to`` (a ``_pad_spec`` dict, possibly of a larger grid) pins the
+    padded shapes, so that every chunk of a chunked run has the whole
+    grid's.  The cells of one config differ only in ``k_clients`` and
+    ``key``: each config's row is built once and taken by index, and the
+    keys ``PRNGKey(seed * 1_000_003 + ci)`` are computed for all cells at
+    once."""
+    kind = _batch_kind(configs)
+    spec = pad_to or _pad_spec(configs, grid)
+    if kind == "epaxos" and any(c.n != spec["nmax"] for c in configs):
+        raise ValueError("epaxos batches must share one cluster size")
+    stop = warmup + duration
+    rows = [_config_row(c, kind, spec, stop, warmup, duration)
+            for c in configs]
+    g = np.asarray([(ci, k, seed) for ci, k, seed in grid],
+                   dtype=np.int64).reshape(-1, 3)
+    ci = g[:, 0]
+    batch = {}
+    for name in _CELL_FIELDS:
+        if name == "k_clients":
+            batch[name] = g[:, 1].astype(np.int32)
+        elif name == "key":
+            s = g[:, 2] * 1_000_003 + ci
+            batch[name] = np.stack([(s >> 32) & 0xFFFFFFFF,
+                                    s & 0xFFFFFFFF], -1).astype(np.uint32)
+        else:
+            batch[name] = np.stack([r[name] for r in rows])[ci]
+    return batch, kind, spec["kmax"]
 
 
 # ============================================================== group kernel
@@ -437,10 +541,25 @@ def _pct(sorted_vals, m, q):
     return torch.where(m > 0, v, torch.nan)
 
 
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of each row of a (C, S) float tensor in one fixed pairwise
+    order (halves added elementwise, a zero appended to an odd length), so
+    that a cell's bits depend neither on how many cells share the tensor
+    nor on the device: a library reduction picks its order by shape and
+    device."""
+    while x.shape[1] > 1:
+        if x.shape[1] % 2:
+            x = torch.nn.functional.pad(x, (0, 1))
+        x = x[:, 0::2] + x[:, 1::2]
+    return x[:, 0]
+
+
 def _summarize(lat, t_fin, commit_t, active, ready, loadF, loadL, cell,
                nb: int = 0):
     """Per-cell measurement summary over (C, requests) step outputs; with
-    ``nb`` buckets, the completion timeline too."""
+    ``nb`` buckets, the completion timeline too.  The loads are sums of
+    small integers (exact in any order); the latency sum goes through
+    ``_row_sum``."""
     f32 = torch.float32
     stop = cell["stop"][:, None]
     warmup = cell["warmup"][:, None]
@@ -457,7 +576,7 @@ def _summarize(lat, t_fin, commit_t, active, ready, loadF, loadL, cell,
         "count": count,
         "committed": committed,
         "mean_s": torch.where(count > 0,
-                              torch.where(in_lat, lat, 0.0).sum(1) / nf,
+                              _row_sum(torch.where(in_lat, lat, 0.0)) / nf,
                               torch.nan),
         "median_s": _pct(vals, count, 0.5),
         "p25_s": _pct(vals, count, 0.25),
@@ -900,23 +1019,269 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
         rn, wn = rm.sum(1), wm.sum(1)
         out["read_count"], out["write_count"] = rn, wn
         out["read_mean_s"] = torch.where(
-            rn > 0, torch.where(rm, lat, 0.0).sum(1)
+            rn > 0, _row_sum(torch.where(rm, lat, 0.0))
             / torch.clamp_min(rn.to(f32), 1.0), torch.nan)
         out["write_mean_s"] = torch.where(
-            wn > 0, torch.where(wm, lat, 0.0).sum(1)
+            wn > 0, _row_sum(torch.where(wm, lat, 0.0))
             / torch.clamp_min(wn.to(f32), 1.0), torch.nan)
         out["read_p99_s"] = _pct(
             torch.sort(torch.where(rm, lat, inf), dim=1).values, rn, 0.99)
     return out
 
 
+# ============================================================= epaxos kernel
+def _epaxos_tables(cell: Dict[str, torch.Tensor]):
+    """Per-cell tables of what a step reads by its coordinator: the client
+    hops (C, n), the coordinator <-> peer bases (C, n, n) and ``b_prop``
+    (C, n), the mean one-way base to the other nodes.  ``b_prop`` is summed
+    node by node in id order, once a grid, so its bits depend on neither
+    the batch nor the device."""
+    reg_nodes = cell["reg_nodes"]              # (C, n) region of each node
+    reg_lat = cell["reg_lat"]                  # (C, nreg, nreg)
+    C, n = reg_nodes.shape
+    nreg = reg_lat.shape[1]
+    flat = reg_lat.reshape(C, nreg * nreg)
+
+    def at(idx):
+        return torch.gather(flat, 1, idx.reshape(C, -1)).reshape(idx.shape)
+    b_cl = at(reg_nodes)                       # reg_lat[0, coord_reg]
+    b_lc = at(reg_nodes * nreg)                # reg_lat[coord_reg, 0]
+    b_cp = at(reg_nodes[:, :, None] * nreg + reg_nodes[:, None, :])
+    b_pc = b_cp.transpose(1, 2).contiguous()   # b_pc[c, p] = b_cp[p, c]
+    acc = torch.zeros(C, n, dtype=torch.float32, device=reg_nodes.device)
+    ids = torch.arange(n, device=reg_nodes.device)
+    for p in range(n):
+        acc = acc + torch.where(ids != p, b_cp[:, :, p], 0.0)
+    b_prop = acc / torch.full((), float(max(n - 1, 1)), device=acc.device)
+    return b_cl, b_lc, b_cp, b_pc, b_prop
+
+
+def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
+                 kernel: str = "auto", nb: int = 0):
+    """Simulate every grid cell of the EPaxos kernel for ``steps`` scan
+    steps of one request each: a random command leader per request,
+    PreAccept broadcast to all peers, fast-quorum commit on the
+    conflict-free path, ECommit broadcast, and the reference's
+    conflict/slow-path model:
+
+    * each request draws its key from the workload distribution (uniform /
+      zipfian via the cell's CDF row / hot-key conflict);
+    * a request CONFLICTS when the previous same-key instance's PreAccept
+      round is still propagating at its fan-out time (``race[k]``): the
+      commit then takes the slow path, a Paxos-accept fan-out and a
+      majority fan-in;
+    * execution (and the client reply) waits until the previous same-key
+      instance's commit is known everywhere (``depk[k]``).
+
+    Both fan-in rounds are the ``seg_fanin`` order statistic with one
+    segment a cell (rows = cells, F = n, the coordinator's slot +inf,
+    coef = the coordinator's backlog W_C, scalars [-0.5, 0, c, L1], cap
+    fq - 2 or majority - 2): ``kernels.segfanin.seg_fanin_rows``, two
+    sm90 launches a scan step on the card, the plain version on the CPU
+    or with ``kernel="torch"``.  Node 0 is summarized as the "leader"."""
+    f32 = torch.float32
+    inf = torch.inf
+    reg_nodes = cell["reg_nodes"]
+    dev = reg_nodes.device
+    C, n = reg_nodes.shape
+    wan = cell["reg_lat"].shape[1] > 1
+    jitter = cell["jitter"]
+    jitter_c = jitter[:, None]
+    c_req, c_pa, c_par, c_com, c_replycl, c_acc, c_accr = \
+        cell["costs"].unbind(1)
+    c_pa_c, c_par_c, c_com_c = c_pa[:, None], c_par[:, None], c_com[:, None]
+    c_acc_c, c_accr_c = c_acc[:, None], c_accr[:, None]
+    acc_sum = c_acc + c_accr
+    # the coordinator's work less the slow round's, in the reference's order
+    coord_base = c_req + (n - 1) * (c_pa + c_par + c_com) + c_replycl
+    stop, warmup = cell["stop"], cell["warmup"]
+    win_hi = stop + _DRAIN_S
+    key_cdf = cell["key_cdf"]                  # (C, nk)
+    nk = key_cdf.shape[1]
+    nkeysf = cell["n_keys"].to(f32)
+    key_mode = cell["key_mode"]
+    kmodes = set(key_mode.unique().tolist())
+    crate = cell["conflict_rate"]
+    hot_div = torch.clamp_min(1.0 - crate, 1e-9)
+    key_hi = (cell["n_keys"] - 1)[:, None]
+    b_cl_t, b_lc_t, b_cp_t, b_pc_t, b_prop_t = _epaxos_tables(cell)
+    if not wan:
+        # one region: every base is the cell's one latency
+        b_cl = b_lc = b_cl_t[:, 0]
+        b_cp = b_pc = b_cl[:, None]
+        b_prop = b_prop_t[:, 0]
+    ids = torch.arange(n, device=dev)
+    peer_of = ids[None, :] != ids[:, None]                 # [coord, node]
+    ord1_of = (ids[None, :] - (ids[None, :] > ids[:, None]).long()
+               + 1).to(f32)                                # order + 1
+    cells_ix = torch.arange(C, device=dev)
+    # the two fan-in rounds' fixed inputs
+    fan = (seg_fanin_rows_ref if kernel == "torch"
+           else segfanin.seg_fanin_rows)
+    segid = torch.zeros(C, n, dtype=torch.int32, device=dev)
+    kc1 = torch.clamp(cell["fq"] - 2, 0, n - 1)
+    kc2 = torch.clamp(cell["majority"] - 2, 0, n - 1)
+    kcap1 = kc1.to(torch.int32)[:, None].expand(C, n).contiguous()
+    kcap2 = kc2.to(torch.int32)[:, None].expand(C, n).contiguous()
+    kf1, kf2 = kc1.to(f32) + 1.0, kc2.to(f32) + 1.0
+    vcoef = torch.full((C,), -0.5, dtype=f32, device=dev)
+    md1 = torch.zeros(C, dtype=f32, device=dev)
+
+    def fanin(arr_back, W_C, c, L1, kcap):
+        scal = torch.stack((vcoef, md1, c, L1), dim=1)
+        coef = W_C[:, None].expand(C, n).contiguous()
+        return fan(arr_back, coef, segid, kcap, scal, 1)[:, 0]
+
+    kf = torch.arange(kmax, dtype=f32, device=dev)
+    ready = torch.where(torch.arange(kmax, device=dev)
+                        < cell["k_clients"][:, None],
+                        _CLIENT_START + _CLIENT_STAGGER * kf, inf)
+    cpu = torch.zeros(C, n, dtype=f32, device=dev)
+    load = torch.zeros(C, n, dtype=f32, device=dev)
+    race = torch.zeros(C, nk, dtype=f32, device=dev)
+    depk = torch.zeros(C, nk, dtype=f32, device=dev)
+    t0_o = torch.empty(C, steps, dtype=f32, device=dev)
+    tfin_o = torch.empty_like(t0_o)
+    commit_o = torch.empty_like(t0_o)
+    active_o = torch.empty(C, steps, dtype=torch.bool, device=dev)
+    key = cell["key"][:, None, :]
+    blk = max(1, min(steps, _DRAW_BLOCK_ELEMS // (C * (2 * n + 5))))
+
+    for i in range(steps):
+        j = i % blk
+        if j == 0:
+            # split(fold_in(key, i), 5) for every step of the block, then
+            # the reference's five draws in its order
+            idx = torch.arange(i, min(i + blk, steps), device=dev)
+            ks = prng.split(prng.fold_in(key, idx), 5)        # (C, b, 5, 2)
+            coord_blk = prng.randint(ks[:, :, 0], (), 0, n)
+            ecl_blk = prng.exponential(ks[:, :, 1], (2,))
+            eout_blk = prng.exponential(ks[:, :, 2], (n,))
+            eback_blk = prng.exponential(ks[:, :, 3], (n,))
+            ukey_blk = prng.uniform(ks[:, :, 4], ())
+        # the earliest-ready client (the first of equal minima)
+        cid = torch.argmin(ready, dim=1, keepdim=True)
+        t0 = torch.gather(ready, 1, cid)[:, 0]
+        active = t0 < stop
+        coord = coord_blk[:, j]
+        coord_k = coord[:, None]
+        e_cl = ecl_blk[:, j] * jitter_c
+        e_out = eout_blk[:, j] * jitter_c
+        e_back = eback_blk[:, j] * jitter_c
+        u_key = ukey_blk[:, j]
+
+        # the request's key, from the cell's distribution
+        k = torch.floor(u_key * nkeysf).long()
+        if 1 in kmodes:
+            k_zipf = torch.searchsorted(
+                key_cdf, u_key[:, None].contiguous(), right=True)[:, 0]
+            k = torch.where(key_mode == 1, k_zipf, k)
+        if 2 in kmodes:
+            k_conf = torch.where(
+                u_key < crate, 0,
+                1 + torch.floor((u_key - crate) / hot_div
+                                * (nkeysf - 1.0)).long())
+            k = torch.where(key_mode == 2, k_conf, k)
+        k = torch.clamp_min(torch.minimum(k[:, None], key_hi), 0)
+
+        if wan:
+            b_cl = torch.gather(b_cl_t, 1, coord_k)[:, 0]
+            b_lc = torch.gather(b_lc_t, 1, coord_k)[:, 0]
+            b_cp = b_cp_t[cells_ix, coord]
+            b_pc = b_pc_t[cells_ix, coord]
+            b_prop = torch.gather(b_prop_t, 1, coord_k)[:, 0]
+
+        # every node's CPU is a fluid work backlog anchored at t0
+        aC = t0 + b_cl + e_cl[:, 0]
+        W_C = torch.clamp_min(torch.gather(cpu, 1, coord_k)[:, 0] - t0, 0.0)
+        L1 = aC + W_C + c_req
+        is_peer = peer_of[coord]
+        ord1 = ord1_of[coord]
+        pa_done = L1[:, None] + ord1 * c_pa_c
+        cpuC2 = L1 + (n - 1) * c_pa
+        arr_p = pa_done + b_cp + e_out
+        W_p = torch.clamp_min(cpu - t0[:, None], 0.0)
+        doneP = arr_p + W_p + c_pa_c + c_par_c
+        arr_back = torch.where(is_peer, doneP + b_pc + e_back, inf)
+        # fast-path commit after fq - 1 peer replies (the leader votes
+        # itself); the coordinator's backlog drains at half rate meanwhile
+        fast_commit = kf1 * c_par + torch.maximum(
+            cpuC2, fanin(arr_back, W_C, c_par, L1, kcap1))
+
+        # conflict: the previous same-key PreAccept round still propagates
+        race_k = torch.gather(race, 1, k)[:, 0]
+        slow = active & (L1 < race_k)
+        acc_done = fast_commit[:, None] + ord1 * c_acc_c
+        cpuC3 = fast_commit + (n - 1) * c_acc
+        arr_p2 = acc_done + b_cp + e_out
+        doneP2 = arr_p2 + W_p + c_acc_c + c_accr_c
+        arr_back2 = torch.where(is_peer, doneP2 + b_pc + e_back, inf)
+        slow_commit = kf2 * c_accr + torch.maximum(
+            cpuC3, fanin(arr_back2, W_C, c_accr, L1, kcap2))
+        commit_done = torch.where(slow, slow_commit, fast_commit)
+
+        # dependency-order execution behind the same-key predecessor
+        depk_k = torch.gather(depk, 1, k)[:, 0]
+        committed_all = commit_done + (n - 1) * c_com
+        exec_done = torch.maximum(committed_all, depk_k)
+        t_fin = exec_done + c_replycl + b_lc + e_cl[:, 1]
+
+        slowf = slow.to(f32)
+        anchored = torch.maximum(cpu, t0[:, None])
+        coord_work = coord_base + slowf * (n - 1) * acc_sum
+        new_cpu = torch.where(is_peer, anchored + c_pa_c + c_par_c + c_com_c
+                              + (slowf * acc_sum)[:, None], cpu)
+        new_cpu = new_cpu.scatter(
+            1, coord_k, (torch.gather(anchored, 1, coord_k)[:, 0]
+                         + coord_work)[:, None])
+        cpu = torch.where(active[:, None], new_cpu, cpu)
+        ready = ready.scatter(1, cid, torch.where(active, t_fin, inf)[:, None])
+
+        # conflict tracking: when every peer has processed this request's
+        # PreAccept (race), and when its commit is known everywhere (depk)
+        race_new = torch.where(is_peer, arr_p + W_p + c_pa_c, -inf).amax(1)
+        dep_new = committed_all + b_prop + jitter
+        race = race.scatter(1, k, torch.where(active, race_new,
+                                              race_k)[:, None])
+        depk = depk.scatter(1, k, torch.where(active, dep_new,
+                                              depk_k)[:, None])
+
+        # per-node messages of a request in the window (small integers)
+        in_win = active & (commit_done >= warmup) & (commit_done <= win_hi)
+        add = torch.where(is_peer, 3.0 + 2.0 * slowf[:, None],
+                          ((3.0 * n - 1.0) + 2.0 * (n - 1) * slowf)[:, None])
+        load = load + torch.where(in_win[:, None], add, 0.0)
+
+        t0_o[:, i] = t0
+        tfin_o[:, i] = t_fin
+        commit_o[:, i] = commit_done
+        active_o[:, i] = active
+
+    # symmetric protocol: node 0 is reported as "leader", the rest as
+    # followers
+    return _summarize(tfin_o - t0_o, tfin_o, commit_o, active_o, ready,
+                      load[:, 1:].sum(1), load[:, 0], cell, nb=nb)
+
+
+# ================================================================== runners
 def _run_cells(cells: Dict[str, torch.Tensor], steps: int, kmax: int,
                breq: int, kernel: str = "auto", faulty: bool = False,
-               nb: int = 0, obs: bool = False, read: bool = False
-               ) -> Dict[str, torch.Tensor]:
-    """Every cell of a stacked grid through ``steps`` scan steps."""
+               nb: int = 0, obs: bool = False, read: bool = False,
+               kind: str = "group") -> Dict[str, torch.Tensor]:
+    """Every cell of a stacked grid through ``steps`` scan steps of the
+    ``kind`` kernel (EPaxos pops one request a step: ``breq`` = 1)."""
+    if kind == "epaxos":
+        return _epaxos_cell(cells, steps, kmax, kernel, nb)
     return _group_cell(cells, steps, kmax, breq, kernel, faulty, nb, obs,
                        read)
+
+
+def fanin_name(kernel: str, device) -> str:
+    """The fan-in a run goes through: the sm90 kernel on the card with
+    ``kernel="auto"``, else the plain version."""
+    dev = torch.device(device)
+    return ("seg_fanin_sm90" if dev.type == "cuda" and kernel == "auto"
+            else "plain")
 
 
 def simulate_grid(configs: Sequence[SimConfig], grid, duration: float,
@@ -924,7 +1289,8 @@ def simulate_grid(configs: Sequence[SimConfig], grid, duration: float,
                   timeline: bool = False, kernel: str = "auto",
                   obs: bool = False, device=None) -> Dict[str, np.ndarray]:
     """Run every (config_idx, clients, seed) grid point together on
-    ``device`` (CUDA unless the caller passes "cpu").
+    ``device`` (CUDA unless the caller passes "cpu"): one chunk of
+    ``simulate_grid_sharded`` on one device.
 
     Returns per-cell numpy arrays (throughput, median_s, p99_s, committed,
     m_leader, m_follower, exhausted, ...).  Step budgets are per cell: the
@@ -932,47 +1298,133 @@ def simulate_grid(configs: Sequence[SimConfig], grid, duration: float,
     re-runs with a doubled budget (extra scan steps past the stop time are
     no-ops, so finished cells keep their results).  ``out["steps"]`` is
     each cell's final budget; ``out["scan_steps"]`` (an int) counts the
-    scan steps run over all passes, one fan-in launch each.
+    scan steps run over all passes: one fan-in launch each for the group
+    kernel, two for EPaxos.
 
     ``timeline=True`` (implied by fault-mask configs) adds per-cell
-    completion timelines (``_TL_BUCKET`` buckets); ``obs=True`` adds the
-    leader-backlog series (``leader_backlog_s`` / ``leader_backlog_n``) on
-    the same buckets.
+    completion timelines (``_TL_BUCKET`` buckets); ``obs=True`` (group
+    kernel only) adds the leader-backlog series (``leader_backlog_s`` /
+    ``leader_backlog_n``) on the same buckets.
+    """
+    out = simulate_grid_sharded(configs, grid, duration, warmup, steps=steps,
+                                timeline=timeline, kernel=kernel, obs=obs,
+                                chunk=len(grid),
+                                devices=[resolve_device(device)])
+    del out["sharding"]
+    return out
+
+
+def _run_on_devices(batch, devices, steps, kmax, breq, kernel, flags):
+    """One chunk's cells split evenly over ``devices`` (the cell count is a
+    multiple of theirs): every device's share is issued from this thread in
+    turn (its launches are asynchronous), then every result is brought to
+    the host."""
+    per = len(batch["key"]) // len(devices)
+    outs = [_run_cells(cells_from_numpy({k: v[d * per:(d + 1) * per]
+                                         for k, v in batch.items()}, dev),
+                       steps, kmax, breq, kernel, **flags)
+            for d, dev in enumerate(devices)]
+    return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+            for k in outs[0]}
+
+
+def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
+                          duration: float, warmup: float, *,
+                          steps: Optional[int] = None,
+                          timeline: bool = False, kernel: str = "auto",
+                          obs: bool = False, chunk: int = 4096, devices=None,
+                          device=None) -> Dict[str, np.ndarray]:
+    """``simulate_grid`` in fixed chunks over a list of devices (port of
+    ``repro.core.vectorsim.simulate_grid_sharded``).  ``devices`` defaults
+    to every visible CUDA device, or ``[cpu]`` when ``device="cpu"``.
+
+    Each chunk holds ``chunk`` cells (rounded down to a multiple of the
+    device count, at least one a device), a ragged last chunk padded with
+    its last cell; shapes are pinned grid-wide (``_pad_spec``); a chunk's
+    exhausted cells retry inside it with doubled budgets, padded back to a
+    device multiple; a chunk's results reach the host before the next is
+    stacked, so device memory is bounded by one chunk.  Per-cell results
+    are bit-identical to one ``simulate_grid`` call on the same cells.
+
+    Returns the ``simulate_grid`` dict plus ``out["sharding"]``: device
+    count, ``impl`` ("chunked"), the fan-in (``fanin_name``),
+    chunk size and per chunk {cells, wall_s (stacking included), stack_s,
+    steps, scan_steps, retries}.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
-    dev = resolve_device(device)
-    batch, _, kmax = _stack_cells(configs, grid, duration, warmup)
-    cells = cells_from_numpy(batch, dev)
+    if devices is None:
+        dev = resolve_device(device)
+        devices = ([torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+                   if dev.type == "cuda" else [dev])
+    devices = [resolve_device(d) for d in devices]
+    D = len(devices)
+    chunk = max(chunk - chunk % D, D)
+    if obs and _batch_kind(configs) != "group":
+        raise ValueError("obs timelines are group-kernel only — the epaxos "
+                         "kernel has no single-leader FIFO to observe")
+    spec = _pad_spec(configs, grid)
+    kmax = spec["kmax"]
     faulty = any(c.down is not None or c.slow is not None for c in configs)
     read = any(c.read_ratio > 0.0 for c in configs)
     nb = (int(np.ceil((warmup + duration + _DRAIN_S) / _TL_BUCKET)) + 1
           if (faulty or timeline or obs) else 0)
     if steps is None:
         # requests are only issued inside [0, stop); the rate bound is
-        # optimistic, and the exhausted-retry loop below is the safety net
+        # optimistic, and the exhausted-retry loop is the safety net
         rate = max(_estimate_rate(configs[ci], k) for ci, k, _ in grid)
         steps = int(rate * (warmup + duration) * 1.15) + kmax + 64
-    steps = min(steps, _MAX_STEPS)
-    breq = min(8, kmax)                # requests popped per scan step
-    flags = dict(kernel=kernel, faulty=faulty, nb=nb, obs=obs, read=read)
-    scan = -(-steps // breq)
-    out = {k: v.cpu().numpy()
-           for k, v in _run_cells(cells, scan, kmax, breq, **flags).items()}
-    scan_steps = scan
-    steps_arr = np.full(len(grid), steps, np.int32)
-    while out["exhausted"].any() and steps < _MAX_STEPS:
-        steps = min(steps * 2, _MAX_STEPS)
-        scan = -(-steps // breq)
-        idx = np.nonzero(out["exhausted"])[0]
-        sel = torch.as_tensor(idx, device=dev)
-        sub = {k: v[sel] for k, v in cells.items()}
-        for k, v in _run_cells(sub, scan, kmax, breq, **flags).items():
-            out[k][idx] = v.cpu().numpy()
-        steps_arr[idx] = steps
-        scan_steps += scan
+    steps0 = min(steps, _MAX_STEPS)
+    # the group kernel pops `breq` requests a scan step, EPaxos one
+    breq = min(8, kmax) if configs[0].kind == "group" else 1
+    flags = dict(faulty=faulty, nb=nb, obs=obs, read=read,
+                 kind=configs[0].kind)
+    n_cells = len(grid)
+    out: Dict[str, np.ndarray] = {}
+    steps_arr = np.empty(n_cells, np.int32)
+    meta = []
+    for lo in range(0, n_cells, chunk):
+        part = list(grid[lo:lo + chunk])
+        real = len(part)
+        part += [part[-1]] * (chunk - real)   # every chunk one shape
+        t0 = time.perf_counter()
+        batch, _, _ = _stack_cells(configs, part, duration, warmup,
+                                   pad_to=spec)
+        stack_s = time.perf_counter() - t0
+        steps_c = steps0
+        scan = -(-steps_c // breq)
+        cout = _run_on_devices(batch, devices, scan, kmax, breq, kernel,
+                               flags)
+        scans, retries = scan, 0
+        csteps = np.full(chunk, steps_c, np.int32)
+        while cout["exhausted"][:real].any() and steps_c < _MAX_STEPS:
+            steps_c = min(steps_c * 2, _MAX_STEPS)
+            scan = -(-steps_c // breq)
+            idx = np.nonzero(cout["exhausted"])[0]
+            # retry the exhausted subset, padded back to a device multiple
+            ridx = np.resize(idx, -(-len(idx) // D) * D)
+            sub = _run_on_devices({k: v[ridx] for k, v in batch.items()},
+                                  devices, scan, kmax, breq, kernel, flags)
+            for k, v in sub.items():
+                cout[k][idx] = v[:len(idx)]
+            csteps[idx] = steps_c
+            scans += scan
+            retries += 1
+        wall = time.perf_counter() - t0
+        for k, v in cout.items():
+            if k not in out:
+                out[k] = np.empty((n_cells,) + v.shape[1:], v.dtype)
+            out[k][lo:lo + real] = v[:real]
+        steps_arr[lo:lo + real] = csteps[:real]
+        meta.append({"cells": real, "wall_s": wall, "stack_s": stack_s,
+                     "steps": int(csteps[:real].max()), "scan_steps": scans,
+                     "retries": retries})
     out["steps"] = steps_arr
-    out["scan_steps"] = scan_steps
+    out["scan_steps"] = sum(m["scan_steps"] for m in meta)
+    out["sharding"] = {"devices": D, "impl": "chunked",
+                       "kernel": fanin_name(kernel, devices[0]),
+                       "chunk": chunk, "chunks": meta}
     return out
 
 
@@ -1001,10 +1453,12 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     workload the read/write split (``rw``).
 
     ``info``, when given, receives the run's device name, cell count, scan
-    steps and wall seconds (the host clock around work that ends with the
-    results on the host).
+    steps, fan-in kernel launches (one a scan step for the group kernel,
+    two for EPaxos; none on the CPU) and wall seconds (the host clock
+    around work that ends with the results on the host).
     """
     t0 = time.perf_counter()
+    launches0 = segfanin.launches
     cfg = build_config(protocol, n, pig=pig, topo=topo, workload=workload,
                        masks=masks, batch_m=batch_m)
     m = int(batch_m)
@@ -1022,6 +1476,7 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
         info.update({"device": (torch.cuda.get_device_name(dev)
                                 if dev.type == "cuda" else "cpu"),
                      "cells": len(grid), "scan_steps": int(out["scan_steps"]),
+                     "fanin_launches": segfanin.launches - launches0,
                      "wall_s": time.perf_counter() - t0})
     # mean reply rank correction (seconds); 0 when unbatched
     lat_adj = 0.0 if m == 1 else (m - 1) / 2.0 * (cfg.costs["c_replycl"] / m)

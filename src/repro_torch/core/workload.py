@@ -1,12 +1,17 @@
 """The workload shape (copied from ``repro.core.cluster.WorkloadConfig``),
 with all of its fields, defaults and checks: a scenario records every
 field in its spec.  The batch backend reads the payload sizes, the write
-or read fraction, ``read_path`` and ``arrival``; the rest drive the
-discrete-event clients, which are not ported."""
+or read fraction, ``read_path``, ``arrival`` and, for EPaxos, the key
+distribution (``n_keys``, ``key_dist``, ``zipf_theta``,
+``conflict_rate``); the rest drive the discrete-event clients, which are
+not ported.  ``zipf_cdf`` is the reference's key CDF
+(``repro.core.cluster.zipf_cdf``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
+
+import numpy as np
 
 
 @dataclass
@@ -107,3 +112,19 @@ class WorkloadConfig:
             raise ValueError("read_path='quorum' needs closed-loop clients — "
                              "the probe/rinse state machine tracks one "
                              "outstanding read per client")
+
+
+_zipf_cdf_cache: Dict[tuple, np.ndarray] = {}
+
+
+def zipf_cdf(n_keys: int, theta: float) -> np.ndarray:
+    """Cumulative distribution of a Zipf(theta) law over ranks 1..n_keys
+    (rank 1 == key 0).  Cached: building it is O(n_keys), sampling O(log n)."""
+    key = (n_keys, float(theta))
+    cdf = _zipf_cdf_cache.get(key)
+    if cdf is None:
+        p = np.arange(1, n_keys + 1, dtype=np.float64) ** -float(theta)
+        cdf = np.cumsum(p / p.sum())
+        cdf[-1] = 1.0
+        _zipf_cdf_cache[key] = cdf
+    return cdf

@@ -1,9 +1,8 @@
-"""The port's scenario catalog: the batch-backend scenarios of
-``repro.experiments.catalog`` that the group kernel runs (the ``wan``,
-``scale``, ``avail``, ``batching``, ``obs`` and ``reads`` families),
-copied with the reference's specs and in its order.  The EPaxos
-``conflict/*/batch`` and ``megagrid/slice/*`` scenarios wait on their
-modules.  Importing this module populates the registry."""
+"""The port's scenario catalog: the reference's 35 batch-backend
+scenarios (``repro.experiments.catalog``, ``backend="batch"``), copied
+with its specs and in its order: the EPaxos ``conflict`` grids, ``wan``,
+``scale``, ``avail``, ``batching``, ``obs``, the ``megagrid`` slices and
+``reads``.  Importing this module populates the registry."""
 from __future__ import annotations
 
 from ..core.pig import PigConfig
@@ -14,6 +13,17 @@ from .scenario import Scenario
 
 # the fig10 three-region WAN latencies (one-way ms)
 _WAN3_ONEWAY_MS = [[0.15, 31, 35], [31, 0.15, 11], [35, 11, 0.15]]
+
+# EPaxos conflict-rate sweeps on the batch backend (the conflict/slow-path
+# model): hot-key probability c drives the dependency/interference rate
+for n in (25, 49):
+    for c in (0.0, 0.02, 0.1, 0.5):
+        register(Scenario(
+            name=f"conflict/N={n}/c={c}/batch", protocol="epaxos", n=n,
+            backend="batch", batch_ok=True,
+            workload=WorkloadConfig(key_dist="conflict", conflict_rate=c),
+            clients=(40,), seeds=tuple(range(1, 9)), quick_seeds=(1, 2, 3),
+            duration=0.8, quick_duration=0.3))
 
 
 # WAN at N in {25, 49, 101}: the three-region topology scaled up, with
@@ -105,6 +115,23 @@ register(Scenario(
     pig=PigConfig(n_groups=5, prc=1), backend="batch", batch_ok=True,
     obs={"sample_rate": 0.0}, clients=(40,), seeds=(1, 2, 3, 4),
     quick_seeds=(1, 2), duration=0.6, warmup=0.25, quick_duration=0.3))
+
+# megagrid slices: registry-visible samples of the million-cell
+# cross-product study (experiments.megagrid), which streams through
+# vectorsim.simulate_grid_sharded from its CLI
+for n, r, prc, wan in ((9, 2, 1, False), (9, 2, 1, True),
+                       (25, 4, 0, False), (25, 4, 2, True)):
+    spec = _wan_scaled(n)[0] if wan else None
+    register(Scenario(
+        name=f"megagrid/slice/N={n}/R={r}/PRC={prc}/"
+             + ("wan3" if wan else "lan"),
+        protocol="pigpaxos", n=n, pig=PigConfig(n_groups=r, prc=prc),
+        topo=spec, backend="batch", batch_ok=True,
+        leader_timeout=400e-3 if wan else 50e-3,
+        clients=(4, 16), quick_clients=(4,),
+        seeds=tuple(range(16)), quick_seeds=(0, 1, 2, 3),
+        duration=0.1, quick_duration=0.1, warmup=0.05,
+        quick_skip=(n == 25 and prc == 2)))
 
 # reads: 90% reads served under a held leader lease, against the same mix
 # through the log

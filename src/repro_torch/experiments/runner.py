@@ -14,7 +14,7 @@ Every run emits the reference's artifact schema
          "units": [...], "replicates": [...], "summary": {...},
          "faults": [...],                  # fault-plan scenarios only
          "run": {"device": name, "cells": C, "scan_steps": S,
-                 "wall_s": w}},
+                 "fanin_launches": L, "wall_s": w}},
         ...]}
 
 A unit's ``extras`` carry, as the reference's do, the per-node message
@@ -22,8 +22,9 @@ loads (``collect=("per_node_msgs",)``), the completion ``timeline`` (fault
 plans), the leader-backlog series ``obs`` and the read/write split ``rw``
 (leased reads); a fault-plan unit has ``consistency="model"``.
 
-``run`` is the port's addition: the device the grid ran on, and the scan
-steps it took (one fan-in kernel launch each).
+``run`` is the port's addition: the device the grid ran on, the scan
+steps it took and the fan-in kernel launches they made (one a scan step
+for the group kernel, two for EPaxos; none on the CPU).
 """
 from __future__ import annotations
 

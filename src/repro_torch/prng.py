@@ -24,6 +24,12 @@ What each draw computes (the partitionable threefry layout):
   float64 and rounded to f32 (XLA's f32 ``log1p`` is not correctly
   rounded either way; the float64 detour makes the CPU and the card agree
   with each other, and both agree with XLA to 1 ulp)
+* ``randint(k, shape, lo, hi)`` -> ``k1, k2 = split(k)``; with
+  ``span = hi - lo`` (1 where ``hi <= lo``) and
+  ``mult = ((2**16 % span)**2 mod 2**32) % span`` (0 for spans above
+  2**16, where the square wraps),
+  ``lo + ((bits(k1) % span) * mult + bits(k2) % span) % span``, every
+  product and sum wrapping at 2**32 as JAX's uint32 arithmetic does
 """
 from __future__ import annotations
 
@@ -103,3 +109,19 @@ def exponential(keys: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """``jax.random.exponential(key, shape)`` (f32) per key, to 1 ulp."""
     u = uniform(keys, shape).to(torch.float64)
     return (-torch.log1p(-u)).to(torch.float32)
+
+
+def randint(keys: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32 dtype, as
+    JAX draws it without x64) per key, bit for bit: an int64 tensor of
+    shape ``(..., *shape)``.  Spans up to 2**31 - 1."""
+    minval, maxval = int(minval), int(maxval)
+    span = maxval - minval if maxval > minval else 1
+    if span >= 2 ** 31:
+        raise ValueError(f"randint: span {span} exceeds int32's range")
+    ks = split(keys)
+    hi, lo = bits(ks[..., 0, :], shape), bits(ks[..., 1, :], shape)
+    mult = (((2 ** 16 % span) ** 2) & _M32) % span
+    off = ((((hi % span) * mult) & _M32) + lo % span) & _M32
+    return minval + off % span

@@ -202,6 +202,33 @@ def test_sm90_entries_match_plain_version_at_wan_widths(cuda, name, sizes,
     assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
 
 
+# the megagrid study's group buckets: F = 8 (N = 5 and 9), 16 and 24 slots,
+# groups padded with size-0 groups to the bucket's count (N = 5's slots
+# past its 4 followers form a tail)
+MEGAGRID_LAYOUTS = [("N=5/paxos", [1] * 4, 4, 8), ("N=5/R=2", [2, 2], 6, 8),
+                    ("N=9/R=1", [8], 7, 8), ("N=17/R=2", [8, 8], 14, 16),
+                    ("N=17/R=8", [2] * 8, 8, 16),
+                    ("N=25/R=4", [6] * 4, 20, 24)]
+
+
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("name,sizes,pad,F", MEGAGRID_LAYOUTS,
+                         ids=[x[0] for x in MEGAGRID_LAYOUTS])
+def test_sm90_entries_match_plain_version_at_megagrid_layouts(
+        cuda, name, sizes, pad, F, B):
+    """Both sm90 entries at the megagrid's layouts, bit for bit, at a
+    4,096-cell chunk and the bucket's requests a step."""
+    layout, step = _groups(F + pad + B, sizes, pad, F, 4096, B, cuda)
+    rows = _rows(layout, step)
+    before = segfanin.launches_sm90
+    got = segfanin.FaninGroups(*layout, B)(*step)
+    got_rows = segfanin.seg_fanin_rows(*rows)
+    torch.cuda.synchronize()
+    assert segfanin.launches_sm90 == before + 2
+    assert torch.equal(got, _want_groups(layout, step))
+    assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
+
+
 def _branch_kw(branch):
     from repro_torch.core.network import wan_topology
     from repro_torch.core.workload import WorkloadConfig
@@ -733,3 +760,93 @@ def test_rwkv_smoke_generate_kernel_equals_ref(cuda):
     top2 = lr.topk(2, dim=-1).values
     clear = (top2[:, 0] - top2[:, 1]) > 0.15
     assert torch.equal(ta[clear, 0], tr[clear, 0])
+
+
+# ----------------------------------------------- the EPaxos kernel's fan-in
+@pytest.mark.parametrize("F", [5, 9, 17, 25, 49])
+@pytest.mark.parametrize("rows", [8, 4096])
+@pytest.mark.parametrize("cap", ["fq", "majority"])
+def test_epaxos_fanin_layouts_match_plain_version(cuda, F, rows, cap):
+    """``seg_fanin_rows`` at the EPaxos kernel's layout (rows = cells, one
+    segment of F = n slots, the coordinator's slot +inf, coef = W_C,
+    scalars [-0.5, 0, c, L1], cap fq - 2 or majority - 2, ties on a 2**-8
+    grid): the sm90 kernel equals the plain version bit for bit, one
+    launch a call."""
+    from repro_torch.core.quorums import fast_quorum, majority
+    rng = np.random.default_rng(F * rows)
+    vals = 1.0 + np.floor(rng.uniform(0, 256, (rows, F))) / 256
+    vals[np.arange(rows), rng.integers(0, F, rows)] = np.inf
+    wc = np.where(rng.uniform(size=rows) < 0.25, 0.0,
+                  rng.uniform(0, 2e-3, rows))
+    kcap = (fast_quorum(F) if cap == "fq" else majority(F)) - 2
+    scal = np.stack([np.full(rows, -0.5), np.zeros(rows),
+                     np.full(rows, 2e-5), 1.0 - rng.uniform(0, 1e-3, rows)],
+                    axis=1)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)
+    i = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
+    args = (f(vals), f(np.repeat(wc[:, None], F, 1)), i(np.zeros((rows, F))),
+            i(np.full((rows, F), kcap)), f(scal), 1)
+    n0 = segfanin.launches_sm90
+    got = segfanin.seg_fanin_rows(*args)
+    assert segfanin.launches_sm90 == n0 + 1
+    want = ref.seg_fanin_rows_ref(*args)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_epaxos_run_through_the_kernel_equals_the_plain_run(cuda):
+    """Two launches a scan step; the kernel's run, the plain fan-in's run
+    on the card and the CPU's run give the same units (hot keys, so the
+    slow path runs too)."""
+    from repro_torch.core.workload import WorkloadConfig
+    kw = dict(workload=WorkloadConfig(key_dist="conflict",
+                                      conflict_rate=0.5),
+              clients=(10, 20), seeds=(0, 1), duration=0.05, warmup=0.05)
+    segfanin.launches = segfanin.launches_sm90 = 0
+    info: dict = {}
+    a = vectorsim.simulate_scenario("epaxos", 9, info=info, device=cuda,
+                                    **kw)
+    assert segfanin.launches == segfanin.launches_sm90 \
+        == info["fanin_launches"] == 2 * info["scan_steps"] > 0
+    assert a == vectorsim.simulate_scenario("epaxos", 9, kernel="torch",
+                                            device=cuda, **kw)
+    c = vectorsim.simulate_scenario("epaxos", 9, device="cpu", **kw)
+    for x, y in zip(a, c):
+        assert abs(x["count"] - y["count"]) <= 1
+        assert x["p99_ms"] == pytest.approx(y["p99_ms"], rel=1e-5)
+
+
+def test_chunked_equals_unchunked_on_the_card(cuda):
+    """``simulate_grid_sharded`` in ragged chunks == one ``simulate_grid``
+    call, bit for bit, for the group and the EPaxos kernels."""
+    from repro_torch.core.workload import WorkloadConfig
+    for cfgs, grid in (
+            ([vectorsim.build_config("pigpaxos", 9,
+                                     pig=PigConfig(n_groups=2, prc=1)),
+              vectorsim.build_config("paxos", 9)],
+             [(ci, k, s) for ci in range(2) for k in (4, 8)
+              for s in range(6)]),
+            ([vectorsim.build_config("epaxos", 5),
+              vectorsim.build_config("epaxos", 5, workload=WorkloadConfig(
+                  key_dist="conflict", conflict_rate=0.5))],
+             [(ci, k, s) for ci in range(2) for k in (2, 4)
+              for s in range(3)])):
+        want = vectorsim.simulate_grid(cfgs, grid, 0.05, 0.05, device=cuda)
+        got = vectorsim.simulate_grid_sharded(cfgs, grid, 0.05, 0.05,
+                                              chunk=7, device=cuda)
+        assert got["sharding"]["kernel"] == "seg_fanin_sm90"
+        for k in want:
+            if k != "scan_steps":
+                assert np.array_equal(want[k], got[k], equal_nan=True), k
+
+
+def test_jaxsim_card_equals_cpu(cuda):
+    from repro_torch import prng
+    from repro_torch.core import jaxsim
+    a = jaxsim.relay_load_mc(prng.PRNGKey(0), 25, 3, 8192, device=cuda)
+    b = jaxsim.relay_load_mc(prng.PRNGKey(0), 25, 3, 8192, device="cpu")
+    for k in b:
+        assert torch.equal(a[k].cpu(), b[k]), k
+    x = jaxsim.latency_curve([100.0, 1000.0, 1800.0], 25, 3, device=cuda)
+    y = jaxsim.latency_curve([100.0, 1000.0, 1800.0], 25, 3, device="cpu")
+    for k in y:
+        torch.testing.assert_close(x[k].cpu(), y[k], rtol=1e-6, atol=0)

@@ -1,7 +1,8 @@
 """The port's threefry draws against jax.random, bit for bit, at the shapes
 the group kernel draws: (B, 2+2G+2F) link jitter and (B, G) relay choice
 with G=32, F=1024 (the N=1025/R=32 cell), under per-cell keys
-PRNGKey(seed * 1_000_003 + ci) up to seed 127."""
+PRNGKey(seed * 1_000_003 + ci) up to seed 127; and ``randint`` at the
+EPaxos kernel's coordinator draw (a scalar below n) and wider spans."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -81,3 +82,42 @@ def test_uniform_is_the_mantissa_construction():
     assert torch.equal(u, want)
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert float(jnp.asarray(0.0)) == 0.0   # jax stays importable alongside
+
+
+@pytest.mark.parametrize("span", [1, 5, 25, 49, 1000, 2 ** 31 - 1])
+@pytest.mark.parametrize("shape", [(), (7,), (3, 4)])
+def test_randint_matches(span, shape):
+    """``jax.random.randint(key, shape, 0, span)`` bit for bit: the two
+    split halves' bits, each reduced mod span, combined with the
+    multiplier (2**16 % span)**2 % span, whose square wraps to 0 at spans
+    above 2**16, as JAX's uint32 arithmetic does."""
+    keys = np.stack([np.asarray(jax.random.split(
+        jax.random.fold_in(k, 11))[0]) for k in _keys()])
+    want = np.stack([np.asarray(jax.random.randint(k, shape, 0, span))
+                     for k in keys])
+    got = prng.randint(_t(keys), shape, 0, span)
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy(), want)
+    assert int(got.min()) >= 0 and int(got.max()) < span
+
+
+def test_randint_batched_keys_and_bounds():
+    """The EPaxos kernel's form: one scalar draw per (cell, step) key of
+    ``split(fold_in(key, i), 5)[0]``; and minval/maxval other than 0, an
+    empty range (minval returned), spans at 2**16."""
+    keys = _keys()
+    steps = torch.arange(5, 9)
+    ks = prng.split(prng.fold_in(_t(keys)[:, None, :], steps), 5)
+    got = prng.randint(ks[:, :, 0], (), 0, 25)
+    want = np.stack([[int(jax.random.randint(jax.random.split(
+        jax.random.fold_in(k, i), 5)[0], (), 0, 25)) for i in range(5, 9)]
+        for k in keys])
+    assert np.array_equal(got.numpy(), want)
+    k = keys[1]
+    for lo, hi in ((-7, 20), (3, 2), (5, 5), (0, 2 ** 16), (0, 2 ** 16 + 1),
+                   (-(2 ** 30), 2 ** 30 - 1)):
+        want = np.asarray(jax.random.randint(k, (6,), lo, hi))
+        assert np.array_equal(prng.randint(_t(k), (6,), lo, hi).numpy(),
+                              want), (lo, hi)
+    with pytest.raises(ValueError, match="span"):
+        prng.randint(_t(k), (), 0, 2 ** 31)

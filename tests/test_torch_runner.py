@@ -31,23 +31,25 @@ def arts():
 
 
 def test_catalog_is_the_scale_batch_family():
-    """The port registers the reference's batch-backend scenarios that the
-    group kernel runs, in the reference's order and with its specs: the 9
-    ``scale/batch/*`` and the 14 of the wan, avail, batching, obs and reads
-    families; the EPaxos ``conflict/*/batch`` and ``megagrid/slice/*``
-    wait on their modules."""
+    """The port registers every one of the reference's batch-backend
+    scenarios, in the reference's order and with its specs: the 9
+    ``scale/batch/*``, the 8 EPaxos ``conflict/*/batch``, the 4
+    ``megagrid/slice/*`` and the 14 of the wan, avail, batching, obs and
+    reads families."""
     want = [n for n in ref_registry.names()
-            if ref_registry.select(n)[0].backend == "batch"
-            and not n.startswith(("conflict/", "megagrid/"))]
-    assert registry.names() == want and len(want) == 23
+            if ref_registry.select(n)[0].backend == "batch"]
+    assert registry.names() == want and len(want) == 35
     for name in want:
         (p,) = registry.select(name)
         (r,) = ref_registry.select(name)
         pd, rd = p.spec_dict(), r.spec_dict()
         assert {k: rd[k] for k in pd} == pd, name
+        assert (p.quick_skip, p.leader_timeout) == (r.quick_skip,
+                                                    r.leader_timeout)
     assert len(registry.select("scale")) == 9
     for fam, count in (("wan", 3), ("avail", 2), ("batching", 6),
-                       ("obs", 1), ("reads", 2)):
+                       ("obs", 1), ("reads", 2), ("conflict", 8),
+                       ("megagrid", 4)):
         assert len(registry.select(fam)) == count, fam
     with pytest.raises(ValueError, match="matched no scenario"):
         registry.select("fig8/*")
@@ -120,9 +122,11 @@ def test_obs_artifact_passes_the_gate_and_matches_reference():
     extras included."""
     with open(regression_gate.DEFAULT_BOUNDS) as f:
         bounds = json.load(f)
-    # every entry that names one of the port's new scenarios (the scale
-    # family's R=3 window is fed to the gate above)
-    names = {n for n in registry.names() if not n.startswith("scale/")}
+    # every entry that names one of the branch families' scenarios (the
+    # scale family's R=3 window is fed to the gate above, the conflict and
+    # megagrid windows below)
+    names = {n for n in registry.names()
+             if not n.startswith(("scale/", "conflict/", "megagrid/"))}
     fed = {sec: {k: v for k, v in entries.items() if k in names}
            for sec, entries in bounds.items()
            if sec in ("bounds", "speedup", "overload")}
@@ -145,3 +149,27 @@ def test_obs_artifact_passes_the_gate_and_matches_reference():
         np.testing.assert_allclose(pa["leader_backlog"]["mean_ms"],
                                    pb["leader_backlog"]["mean_ms"],
                                    rtol=1e-5, atol=1e-6)
+
+
+GATED = ("conflict/N=25/c=0.1/batch", "megagrid/slice/N=9/R=2/PRC=1/lan",
+         "megagrid/slice/N=9/R=2/PRC=1/wan3")
+
+
+def test_epaxos_and_megagrid_artifacts_pass_the_gate():
+    """Quick artifacts of the EPaxos conflict grid and two megagrid slices
+    (LAN and wan3) through the unchanged gate, fed the bound entries that
+    name them; the run records count the scan steps (no fan-in kernel
+    launches on the CPU)."""
+    with open(regression_gate.DEFAULT_BOUNDS) as f:
+        bounds = json.load(f)["bounds"]
+    fed = {"bounds": {n: bounds[n] for n in GATED}}
+    port = runner.run_scenarios(
+        [registry.select(n)[0] for n in GATED], quick=True, device="cpu")
+    seen = {sa["name"]: sa for sa in port["scenarios"]}
+    failures, lines = regression_gate.evaluate(seen, fed)
+    assert failures == [], failures
+    assert sum(line.startswith("ok") for line in lines) == 3
+    for sa in port["scenarios"]:
+        run = sa["run"]
+        assert run["scan_steps"] > 0 and run["fanin_launches"] == 0
+        assert not any(u["exhausted"] for u in sa["units"])

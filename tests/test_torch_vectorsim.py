@@ -218,14 +218,16 @@ def test_seeds_give_different_latency_vectors():
 # ------------------------------------------------- (h) boundaries
 @pytest.mark.parametrize("kw,what", [(dict(), "EPaxos")])
 def test_unported_paths_raise_not_implemented(kw, what):
-    """The EPaxos kernel is the one path not ported yet (WAN, fault
-    masks, reads, leader batching and obs are, and are held against the
-    reference in test_torch_vectorsim_branches.py)."""
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1, item 7"):
-        tvs.build_config("epaxos", 25, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tvs.simulate_scenario("epaxos", 25, device="cpu", **kw)
+    """Every path of the reference's batch backend is ported now: the
+    EPaxos kernel, the last to come, lowers and runs where it used to
+    raise ``NotImplementedError`` (it is held against the reference in
+    ``test_torch_epaxos.py``)."""
+    cfg = tvs.build_config("epaxos", 25, **kw)
+    assert cfg.kind == "epaxos" and cfg.label == "epaxos/N=25"
+    (u,) = tvs.simulate_scenario("epaxos", 25, clients=(8,), seeds=(0,),
+                                 duration=0.02, warmup=0.02, device="cpu",
+                                 **kw)
+    assert u["count"] > 0 and not u["exhausted"], what
 
 
 @pytest.mark.parametrize("proto,kw", [

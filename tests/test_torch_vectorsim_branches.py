@@ -124,8 +124,7 @@ def test_build_config_and_stacked_cells_equal_reference(branch):
         assert (a is None) == (b is None), f
         assert a is None or np.array_equal(a, b), f
     grid = [(0, 20, 0), (0, 64, 3)]
-    assert tvs._pad_spec([tc], grid) == {
-        k: v for k, v in rvs._pad_spec([rc], grid).items() if k != "nmax"}
+    assert tvs._pad_spec([tc], grid) == rvs._pad_spec([rc], grid)
     rb, rk, rkmax = rvs._stack_cells([rc], grid, 0.5, 0.25)
     tb, tk, tkmax = tvs._stack_cells([tc], grid, 0.5, 0.25)
     assert (tk, tkmax) == (rk, rkmax) and sorted(tb) == sorted(rb)
