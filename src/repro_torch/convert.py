@@ -9,8 +9,13 @@ model this stacked dict is what weights are to a model.
 
 ``params_from_jax`` and ``cache_from_jax`` take the JAX package's
 ``init_params`` pytree and ``make_cache`` dict as numpy arrays (stacked L
-axis) and give the port's model (``DenseModel``, or ``RWKVModel`` for the
-``rwkv`` family) and cache, bit for bit.
+axis) and give the port's model and cache, bit for bit, for every family:
+``DenseModel`` (``dense``, ``vlm``, ``audio``, and ``moe`` with its
+``layers.moe.*`` leaves: the f32 router, the expert stacks, the shared
+experts), ``RWKVModel``, ``SSMModel`` (``layers.ssm.*``, ``layers.ln``)
+and ``HybridModel`` (the same plus the one unstacked ``shared_attn.*``
+block); caches ``{"kv"}``, ``{"rwkv"}``, ``{"ssm": {conv, state}}`` or
+the hybrid's ``{"ssm", "kv"}``.
 ``tree_from_jax`` carries any nested dict of arrays (gradients, residuals)
 across as the same nested dict of tensors.
 """
@@ -73,11 +78,12 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
 
 
 def params_from_jax(tree: Mapping, cfg, device):
-    """The JAX ``init_params`` pytree of a ported model -> the port's model
-    for ``cfg.family`` (``models.model_class``) on ``device``, each leaf
-    keeping its dtype.  ``layers``
-    leaves carry a leading L axis, which becomes ``layers.<l>.``; every
-    leaf must map to exactly one parameter and back (a strict load)."""
+    """The JAX ``init_params`` pytree -> the port's model for
+    ``cfg.family`` (``models.model_class``) on ``device``, each leaf
+    keeping its dtype.  ``layers`` leaves carry a leading L axis, which
+    becomes ``layers.<l>.``; other leaves (``embed``, ``shared_attn.*``)
+    map by name as they are; every leaf must map to exactly one parameter
+    and back (a strict load)."""
     state = {}
     for name, a in _flatten(tree).items():
         a = np.asarray(a)
@@ -97,8 +103,9 @@ def params_from_jax(tree: Mapping, cfg, device):
 
 
 def cache_from_jax(cache: Mapping, device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The JAX ``make_cache`` dict ({'kv': {'k', 'v', 'pos'}} or
-    {'rwkv': {'shift_t', 'shift_c', 'state'}}) -> the port's, bit for
+    """The JAX ``make_cache`` dict ({'kv': {'k', 'v', 'pos'}},
+    {'rwkv': {'shift_t', 'shift_c', 'state'}}, {'ssm': {'conv', 'state'}}
+    or the hybrid's {'ssm': ..., 'kv': ...}) -> the port's, bit for
     bit."""
     return {group: {name: tensor_from_numpy(a, device)
                     for name, a in arrays.items()}

@@ -119,3 +119,18 @@ class ModelConfig:
         d = self.d_model
         dense = self.param_count() - self.n_layers * self.n_experts * 3 * d * self.moe_d_ff
         return dense + self.n_layers * self.top_k * 3 * d * self.moe_d_ff
+
+
+def param_count_shortfall(cfg: ModelConfig) -> int:
+    """How far ``cfg.param_count()`` falls short of the parameters that
+    ``init_params`` builds, a fault of the JAX package's formula that this
+    copy keeps: for the ``ssm`` and ``hybrid`` families it counts h =
+    ssm_heads or d_model // 128 Mamba2 heads and two H-vectors, where the
+    block has H = d_inner // 64 heads (or ssm_heads) and three (``dt_bias``,
+    ``A_log``, ``D``): short by n_layers ((H - h) d_model + 3H - 2h)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0
+    d = cfg.d_model
+    H = cfg.ssm_heads or 2 * d // 64
+    h = cfg.ssm_heads or max(1, d // 128)
+    return cfg.n_layers * ((H - h) * d + 3 * H - 2 * h)

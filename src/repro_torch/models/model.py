@@ -1,15 +1,23 @@
-"""Top-level model zoo API for the dense families (``dense``, ``vlm``,
-``audio``) and ``rwkv``: init_params / forward / prefill / decode_step.
-The port of ``repro.models.model``.
+"""Top-level model zoo API: init_params / forward / prefill / decode_step
+for every family of the zoo (``dense``, ``vlm``, ``audio``, ``moe``,
+``rwkv``, ``ssm``, ``hybrid``).  The port of ``repro.models.model``.
 
 Parameters live in ``nn.Module``s whose names mirror the JAX dict's keys
 (``embed``, ``final_norm``, ``head``, ``layers.<l>.attn.wq``,
-``layers.<l>.ln1``, ``layers.<l>.mlp.w1``, ``layers.<l>.time.wr``, ...),
-so ``convert`` maps one to the other by name.  The JAX package stacks
-per-layer parameters on a leading L axis and runs ``lax.scan`` over it;
-here the L axis is a ``ModuleList`` and the scan a loop.  The caches keep
-the stacked (L, ...) layout (``{"kv": ...}`` or ``{"rwkv": ...}``), and
-each layer updates its slice in place.
+``layers.<l>.ln1``, ``layers.<l>.mlp.w1``, ``layers.<l>.moe.w1``,
+``layers.<l>.time.wr``, ``layers.<l>.ssm.in_proj``, ``shared_attn.attn.wq``,
+...), so ``convert`` maps one to the other by name.  The JAX package
+stacks per-layer parameters on a leading L axis and runs ``lax.scan`` over
+it; here the L axis is a ``ModuleList`` and the scan a loop.  The hybrid's
+one shared attention block (``shared_attn``) is not stacked: the JAX
+package scans super-blocks of ``attn_every`` Mamba2 layers, each followed
+by the shared block, then the tail layers (``_hybrid_split``); here one
+loop over ``layers`` runs the shared block after layer i when
+(i + 1) % attn_every == 0 and i < n_super * attn_every.  The caches keep
+the stacked (L, ...) layout (``{"kv": ...}``, ``{"rwkv": ...}``,
+``{"ssm": ...}``, or ``{"ssm": ..., "kv": ...}`` for the hybrid, whose KV
+cache has one layer a super-block), and each layer updates its slice in
+place.
 """
 from __future__ import annotations
 
@@ -24,26 +32,18 @@ from .config import ModelConfig
 from .layers import (Attention, GatedMLP, attention_block, empty_kv_cache,
                      gated_mlp, generator_device, init_attention, init_mlp,
                      rmsnorm, target_device)
+from .moe import MoE, init_moe, moe_block
 from .rwkv import RWKVBlock, empty_rwkv_cache, init_rwkv_block, rwkv_block
+from .ssm import SSMBlock, empty_ssm_cache, init_ssm, ssm_block
 
-DENSE_FAMILIES = ("dense", "vlm", "audio")
-# the ROADMAP item (queue 1) that will port each other family
-NOT_PORTED = {"moe": "item 11b (MoE serving)",
-              "ssm": "item 11c (Mamba2 ssm / zamba2 hybrid serving)",
-              "hybrid": "item 11c (Mamba2 ssm / zamba2 hybrid serving)"}
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            f"queue 1, {NOT_PORTED[cfg.family]})")
-    if cfg.family not in DENSE_FAMILIES + ("rwkv",):
-        raise ValueError(f"unknown family {cfg.family}")
+ATTENTION_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 # ================================================================== modules
 class DenseBlock(nn.Module):
+    """Attention and a gated MLP (``mlp``), or the ``moe`` family's MoE
+    sublayer (``moe``) in its place."""
+
     def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
         super().__init__()
         D = cfg.d_model
@@ -51,14 +51,42 @@ class DenseBlock(nn.Module):
         self.attn = Attention(cfg, dtype, device)
         self.ln1 = nn.Parameter(torch.zeros(D, device=device))
         self.ln2 = nn.Parameter(torch.zeros(D, device=device))
+        if cfg.family == "moe":
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = GatedMLP(D, cfg.d_ff, dtype, device)
+
+
+class SSMLayer(nn.Module):
+    """A Mamba2 block behind its pre-norm (``ssm``, ``ln``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        device = target_device(device)
+        self.ssm = SSMBlock(cfg, dtype, device)
+        self.ln = nn.Parameter(torch.zeros(cfg.d_model, device=device))
+
+
+class SharedAttnBlock(nn.Module):
+    """The hybrid's one shared attention + MLP block (``attn``, ``mlp``,
+    ``ln1``, ``ln2``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        D = cfg.d_model
+        device = target_device(device)
+        self.attn = Attention(cfg, dtype, device)
         self.mlp = GatedMLP(D, cfg.d_ff, dtype, device)
+        self.ln1 = nn.Parameter(torch.zeros(D, device=device))
+        self.ln2 = nn.Parameter(torch.zeros(D, device=device))
 
 
 class DenseModel(nn.Module):
     """Embedding, the stack of ``DenseBlock``s (``RWKVBlock``s for the
-    ``rwkv`` family: ``RWKVModel``), the final norm and (unless tied to the
-    embedding) the head.  Norm weights are f32, the rest in ``dtype``, as
-    in the JAX package.  ``device=None`` is the CUDA device."""
+    ``rwkv`` family: ``RWKVModel``; ``SSMLayer``s for ``ssm``:
+    ``SSMModel``), the final norm and (unless tied to the embedding) the
+    head.  Norm weights are f32, the rest in ``dtype``, as in the JAX
+    package.  ``device=None`` is the CUDA device."""
 
     block = DenseBlock
 
@@ -86,9 +114,43 @@ class RWKVModel(DenseModel):
     block = RWKVBlock
 
 
+class SSMModel(DenseModel):
+    """The ``ssm`` family: a stack of Mamba2 ``SSMLayer``s."""
+
+    block = SSMLayer
+
+
+class HybridModel(SSMModel):
+    """The ``hybrid`` family (zamba2): the Mamba2 stack and one
+    ``SharedAttnBlock`` (``shared_attn``), applied after every
+    ``attn_every``-th layer of the first n_super * attn_every."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__(cfg, dtype, device)
+        self.shared_attn = SharedAttnBlock(cfg, dtype, target_device(device))
+
+
 def model_class(cfg: ModelConfig) -> type:
-    _require_ported(cfg)
-    return RWKVModel if cfg.family == "rwkv" else DenseModel
+    if cfg.family in ATTENTION_FAMILIES:
+        return DenseModel
+    classes = {"rwkv": RWKVModel, "ssm": SSMModel, "hybrid": HybridModel}
+    if cfg.family not in classes:
+        raise ValueError(f"unknown family {cfg.family}")
+    return classes[cfg.family]
+
+
+def n_super(cfg: ModelConfig) -> int:
+    """The hybrid's super-blocks: shared-block applications, KV-cache
+    layers."""
+    return cfg.n_layers // cfg.attn_every
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> bool:
+    """Whether the hybrid's shared block follows layer i (super-block
+    (i + 1) // attn_every - 1 ends there; the tail has none)."""
+    k = cfg.attn_every
+    return (cfg.family == "hybrid" and (i + 1) % k == 0
+            and i < n_super(cfg) * k)
 
 
 # ================================================================== init
@@ -102,33 +164,44 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     dev = generator_device(gen, device)
     D, V = cfg.d_model, cfg.vocab
     model = model_class(cfg)(cfg, dtype, device="meta")
+    zeros = lambda: nn.Parameter(torch.zeros(D, device=dev))
     with torch.no_grad():
         model.embed = nn.Parameter(
             (torch.randn((V, D), generator=gen, device=dev) * 0.02
              ).to(dtype))
-        model.final_norm = nn.Parameter(torch.zeros(D, device=dev))
+        model.final_norm = zeros()
         if not cfg.tie_embeddings:
             model.head = nn.Parameter(
                 (torch.randn((D, V), generator=gen, device=dev)
                  / math.sqrt(D)).to(dtype))
         for i in range(cfg.n_layers):
+            blk = model.layers[i]
             if cfg.family == "rwkv":
                 model.layers[i] = init_rwkv_block(gen, cfg, dtype, dev)
-                continue
-            blk = model.layers[i]
-            blk.attn = init_attention(gen, cfg, dtype, dev)
-            blk.ln1 = nn.Parameter(torch.zeros(D, device=dev))
-            blk.ln2 = nn.Parameter(torch.zeros(D, device=dev))
-            blk.mlp = init_mlp(gen, D, cfg.d_ff, dtype, dev)
+            elif cfg.family in ("ssm", "hybrid"):
+                blk.ssm = init_ssm(gen, cfg, dtype, dev)
+                blk.ln = zeros()
+            else:
+                blk.attn = init_attention(gen, cfg, dtype, dev)
+                blk.ln1, blk.ln2 = zeros(), zeros()
+                if cfg.family == "moe":
+                    blk.moe = init_moe(gen, cfg, dtype, dev)
+                else:
+                    blk.mlp = init_mlp(gen, D, cfg.d_ff, dtype, dev)
+        if cfg.family == "hybrid":
+            sp = model.shared_attn
+            sp.attn = init_attention(gen, cfg, dtype, dev)
+            sp.mlp = init_mlp(gen, D, cfg.d_ff, dtype, dev)
+            sp.ln1, sp.ln2 = zeros(), zeros()
     return model
 
 
 def param_tree_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
-    """The layout of the JAX ``init_params`` tree for a ported config:
-    nested dicts of (shape, dtype), each ``layers`` leaf with its leading L
-    axis stacked.  It is the layout ``convert.params_from_jax`` reads and
-    the layout of the gradient tree that ``collectives.sync_grads``
-    synchronizes."""
+    """The layout of the JAX ``init_params`` tree: nested dicts of (shape,
+    dtype), each ``layers`` leaf with its leading L axis stacked (the
+    hybrid's ``shared_attn`` is one block, not stacked).  It is the layout
+    ``convert.params_from_jax`` reads and the layout of the gradient tree
+    that ``collectives.sync_grads`` synchronizes."""
     tree: dict = {}
     one = model_class(cfg)(cfg.replace(n_layers=1), dtype, device="meta")
     for name, p in one.named_parameters():
@@ -149,14 +222,55 @@ def _dense_block(lp: DenseBlock, x, cfg: ModelConfig, positions, cache, impl):
     h, nc = attention_block(lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps),
                             cfg, positions, cache, impl)
     x = x + h
-    h = gated_mlp(lp.mlp, rmsnorm(x, lp.ln2, cfg.norm_eps), cfg.mlp_act)
+    xn = rmsnorm(x, lp.ln2, cfg.norm_eps)
+    if cfg.family == "moe":
+        h = moe_block(lp.moe, xn, cfg)
+    else:
+        h = gated_mlp(lp.mlp, xn, cfg.mlp_act)
     return x + h, nc
+
+
+def _ssm_layer(lp: SSMLayer, x, cfg: ModelConfig, cache, chunk=64):
+    h, nc = ssm_block(lp.ssm, rmsnorm(x, lp.ln, cfg.norm_eps), cfg,
+                      cache=cache, chunk=chunk)
+    return x + h, nc
+
+
+def _shared_attn_block(sp: SharedAttnBlock, x, cfg: ModelConfig, positions,
+                       cache, impl):
+    h, nc = attention_block(sp.attn, rmsnorm(x, sp.ln1, cfg.norm_eps),
+                            cfg, positions, cache, impl)
+    x = x + h
+    x = x + gated_mlp(sp.mlp, rmsnorm(x, sp.ln2, cfg.norm_eps), cfg.mlp_act)
+    return x, nc
 
 
 def _block(lp, x, cfg: ModelConfig, positions, cache, impl):
     if cfg.family == "rwkv":
         return rwkv_block(lp, x, cfg, cache=cache, impl=impl)
+    if cfg.family in ("ssm", "hybrid"):
+        return _ssm_layer(lp, x, cfg, cache)
     return _dense_block(lp, x, cfg, positions, cache, impl)
+
+
+def _layers(params: DenseModel, cfg: ModelConfig, x, positions,
+            cache: Optional[dict], impl):
+    """The layer stack, with the hybrid's shared block after each
+    super-block.  ``cache``: None, or the stacked cache, whose slices each
+    layer (and each shared-block application) writes in place."""
+    group = {"rwkv": "rwkv", "ssm": "ssm", "hybrid": "ssm"}.get(cfg.family,
+                                                               "kv")
+    for i, lp in enumerate(params.layers):
+        lc = None if cache is None else {n: t[i]
+                                         for n, t in cache[group].items()}
+        x, _ = _block(lp, x, cfg, positions, lc, impl)
+        if _shared_after(cfg, i):
+            j = i // cfg.attn_every
+            kv = None if cache is None else {n: t[j]
+                                             for n, t in cache["kv"].items()}
+            x, _ = _shared_attn_block(params.shared_attn, x, cfg, positions,
+                                      kv, impl)
+    return x
 
 
 def _embed(params: DenseModel, tokens=None, embeds=None):
@@ -175,8 +289,7 @@ def forward_hidden(params: DenseModel, cfg: ModelConfig, tokens=None,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    for lp in params.layers:
-        x, _ = _block(lp, x, cfg, positions, None, impl)
+    x = _layers(params, cfg, x, positions, None, impl)
     return rmsnorm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -197,23 +310,24 @@ def forward(params, cfg, tokens=None, embeds=None, positions=None,
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """An empty cache on ``device`` (``None``: the CUDA device): the KV
-    cache of a dense family, the token shifts and states of ``rwkv``."""
-    _require_ported(cfg)
-    if cfg.family == "rwkv":
+    cache of an attention family, the token shifts and states of
+    ``rwkv``, the conv shifts and states of ``ssm``, both for
+    ``hybrid`` (its KV cache one layer a super-block)."""
+    model_class(cfg)                           # refuses an unknown family
+    fam = cfg.family
+    if fam == "rwkv":
         return {"rwkv": empty_rwkv_cache(cfg, batch, dtype=dtype,
                                          device=device)}
+    if fam in ("ssm", "hybrid"):
+        cache = {"ssm": empty_ssm_cache(cfg, batch, dtype=dtype,
+                                        device=device)}
+        if fam == "hybrid":
+            cache["kv"] = empty_kv_cache(cfg, batch, max_len,
+                                         n_layers=n_super(cfg), dtype=dtype,
+                                         device=device)
+        return cache
     return {"kv": empty_kv_cache(cfg, batch, max_len, dtype=dtype,
                                  device=device)}
-
-
-def _run_cached(params: DenseModel, cfg, x, positions, cache, impl):
-    """The cached-mode layer stack (prefill T>=1 and decode T==1); each
-    layer writes its slice of the stacked cache in place."""
-    (stacked,) = cache.values()
-    for i, lp in enumerate(params.layers):
-        layer_cache = {name: t[i] for name, t in stacked.items()}
-        x, _ = _block(lp, x, cfg, positions, layer_cache, impl)
-    return x, cache
 
 
 @torch.no_grad()
@@ -226,7 +340,7 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens=None, embeds=None,
         cache = make_cache(cfg, B, max_len=S, device=x.device)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    x, cache = _run_cached(params, cfg, x, positions, cache, impl)
+    x = _layers(params, cfg, x, positions, cache, impl)
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x)[:, 0], cache
 
@@ -237,6 +351,6 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: dict,
     """One decode step.  tokens: (B,) int; pos: (B,) absolute positions.
     Returns (logits (B,V), cache)."""
     x = F.embedding(tokens[:, None], params.embed)
-    x, cache = _run_cached(params, cfg, x, pos[:, None], cache, impl)
+    x = _layers(params, cfg, x, pos[:, None], cache, impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x)[:, 0], cache

@@ -7,14 +7,26 @@ The recurrence (matrix-valued state S in R^{Dk x Dv} per head):
 
 ``chunked_linear_scan`` evaluates it chunk-parallel in f32 (the algorithm
 the ``ssm_scan`` kernel implements; ``kernels/ref.py`` delegates here).
-The Mamba2 block (``ssm_block``, ``init_ssm``, ``empty_ssm_cache``) comes
-with the Mamba2/hybrid serving slice (ROADMAP queue 1, item 11c).
+
+The Mamba2 (SSD) block (``SSMBlock``, ``ssm_block``, ``init_ssm``,
+``empty_ssm_cache``) runs its prefill through the scan's scalar-decay
+branch at chunk 64, as the JAX package does: the decay is evaluated
+unfactored, exp(A_t - A_s), so no ``ssm_scan`` kernel serves it (the
+kernel's factored form would overflow f32 at Mamba2's unclamped decays).
+Its parameters are named as the JAX dict's keys; a cache is updated in
+place, each call writing its layer's slice and returning the same dict.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .config import ModelConfig
+from .layers import _normal, _param, generator_device, target_device
 
 
 def chunked_linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,3 +121,129 @@ def linear_scan_step(S: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         y = y + torch.einsum("bhd,bhd->bh", qf,
                              bonus.to(f32)[None] * kf)[..., None] * vf
     return S_new.to(S.dtype), y.to(v.dtype)
+
+
+# --------------------------------------------------------------- Mamba2 block
+def _ssm_dims(cfg: ModelConfig):
+    d_inner = 2 * cfg.d_model
+    P = 64                                   # head dim
+    H = cfg.ssm_heads or d_inner // P
+    N = cfg.ssm_state
+    return d_inner, H, P, N
+
+
+class SSMBlock(nn.Module):
+    """Mamba2 weights: ``in_proj`` (D, 2 d_inner + 2N + H) gives z, x, B, C
+    and dt; ``conv_w`` (W, d_inner) the depthwise causal conv; ``dt_bias``,
+    ``A_log`` and ``D`` (H,) in f32; ``out_proj`` (d_inner, D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        d = cfg.d_model
+        d_inner, H, P, N = _ssm_dims(cfg)
+        device = target_device(device)
+        self.in_proj = _param((d, 2 * d_inner + 2 * N + H), dtype, device)
+        self.conv_w = _param((cfg.conv_width, d_inner), dtype, device)
+        for name in ("dt_bias", "A_log", "D"):
+            setattr(self, name, _param((H,), torch.float32, device))
+        self.out_proj = _param((d_inner, d), dtype, device)
+
+
+def causal_conv(xs: torch.Tensor, conv_w: torch.Tensor,
+                prev: Optional[torch.Tensor]) -> tuple:
+    """The depthwise causal conv over the last W = ``conv_w.shape[0]``
+    positions of xs (B,T,d_inner), behind ``prev`` (B,W-1,d_inner) (zeros
+    without a cache).  In f32, as the JAX package's gather and sum over W:
+    here one shifted slice a tap, summed in tap order, with no (B,T,W,d)
+    gather and no convolution routine (cuDNN would round f32 to TF32).
+    Returns (silu(conv) in xs's dtype, the last W-1 rows of the padded
+    input: the next call's ``prev``)."""
+    B, T, _ = xs.shape
+    W = conv_w.shape[0]
+    if prev is None:
+        prev = xs.new_zeros((B, W - 1, xs.shape[-1]))
+    xpad = torch.cat([prev, xs], dim=1)
+    w = conv_w.to(torch.float32)
+    acc = xpad[:, :T].to(torch.float32) * w[0]
+    for i in range(1, W):
+        acc = acc + xpad[:, i:i + T].to(torch.float32) * w[i]
+    return F.silu(acc).to(xs.dtype), xpad[:, T:]
+
+
+def ssm_block(p: SSMBlock, x: torch.Tensor, cfg: ModelConfig,
+              cache: Optional[dict] = None, chunk: int = 64) -> tuple:
+    """Mamba2 (SSD) block.  x: (B,T,D).  cache: this layer's {'conv':
+    (B,W-1,d_inner), 'state': (B,H,N,P)}, written in place, or None.
+    Returns (y, cache).
+
+    The prefill (T > 1, or no cache) runs ``chunked_linear_scan``'s scalar
+    branch from the cached state, T padded on the right to a multiple of
+    ``chunk`` with zeros (a decay of e^0 = 1 and k = v = 0 leave the final
+    state exact); decode (T == 1 with a cache) runs ``linear_scan_step``."""
+    B, T, D = x.shape
+    d_inner, H, P, N = _ssm_dims(cfg)
+    f32 = torch.float32
+    z, xs, B_, C_, dt = torch.split(x @ p.in_proj,
+                                    [d_inner, d_inner, N, N, H], dim=-1)
+    xs, conv = causal_conv(xs, p.conv_w,
+                           None if cache is None else cache["conv"])
+
+    dt = F.softplus(dt.to(f32) + p.dt_bias.to(f32))               # (B,T,H)
+    log_a = -torch.exp(p.A_log.to(f32)) * dt                      # (B,T,H)
+    v = (xs.reshape(B, T, H, P).to(f32) * dt[..., None]).to(x.dtype)
+    k = B_[:, :, None, :].expand(B, T, H, N).to(x.dtype)
+    q = C_[:, :, None, :].expand(B, T, H, N).to(x.dtype)
+
+    if cache is None or T > 1:
+        pad = (-T) % chunk
+        if pad:
+            q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+            log_a = F.pad(log_a, (0, 0, 0, pad))
+        y, state = chunked_linear_scan(
+            q, k, v, log_a, chunk,
+            s0=None if cache is None else cache["state"], return_state=True)
+        y = y[:, :T]
+    else:
+        state, y1 = linear_scan_step(cache["state"], q[:, 0], k[:, 0],
+                                     v[:, 0], log_a[:, 0])
+        y = y1[:, None]
+    y = y + p.D.to(f32)[:, None] * xs.reshape(B, T, H, P)
+    y = y.reshape(B, T, d_inner).to(x.dtype) * F.silu(z)
+    out = y @ p.out_proj
+    if cache is not None:
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+    return out, cache
+
+
+def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,
+             device=None) -> SSMBlock:
+    """Random block weights with the JAX package's scales (in_proj
+    /sqrt(D), conv x0.5, out_proj /sqrt(d_inner); dt_bias and A_log zero,
+    so A = -1; D one), drawn from ``gen``, which lives on ``device``."""
+    d_inner = _ssm_dims(cfg)[0]
+    p = SSMBlock(cfg, dtype, generator_device(gen, device))
+    with torch.no_grad():
+        p.in_proj.copy_(_normal(gen, p.in_proj.shape) / math.sqrt(cfg.d_model))
+        p.conv_w.copy_(_normal(gen, p.conv_w.shape) * 0.5)
+        p.dt_bias.zero_()
+        p.A_log.zero_()
+        p.D.fill_(1.0)
+        p.out_proj.copy_(_normal(gen, p.out_proj.shape) / math.sqrt(d_inner))
+    return p
+
+
+def empty_ssm_cache(cfg: ModelConfig, batch: int,
+                    n_layers: Optional[int] = None, dtype=torch.bfloat16,
+                    device=None) -> dict:
+    """Stacked per-layer Mamba2 cache: the conv's last W-1 inputs in
+    ``dtype``, the state (L,B,H,N,P) in f32."""
+    device = target_device(device)
+    d_inner, H, P, N = _ssm_dims(cfg)
+    L = cfg.n_layers if n_layers is None else n_layers
+    return {
+        "conv": torch.zeros((L, batch, cfg.conv_width - 1, d_inner),
+                            dtype=dtype, device=device),
+        "state": torch.zeros((L, batch, H, N, P), dtype=torch.float32,
+                             device=device),
+    }

@@ -762,6 +762,80 @@ def test_rwkv_smoke_generate_kernel_equals_ref(cuda):
     assert torch.equal(ta[clear, 0], tr[clear, 0])
 
 
+# ------------------------------------------------- Mamba2 and MoE serving
+def _card_and_cpu(cfg, prompts, gen, dtype=torch.bfloat16):
+    """The smoke config from one CPU init (in ``dtype``) on the card and on
+    the CPU: the prefill step's last-token logits, generate's tokens, and
+    the flash launches of each."""
+    params = init_params(cfg, torch.Generator().manual_seed(0), dtype=dtype,
+                         device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        p, x = params.to(dev), prompts.to(dev)
+        n0 = flash_attention.launches
+        logits, _ = build_prefill_step(cfg, impl="flash")(
+            p, make_cache(cfg, 4, x.shape[1], dtype=dtype, device=dev),
+            tokens=x)
+        n1 = flash_attention.launches
+        toks = generate(p, cfg, make_cache(cfg, 4, x.shape[1] + gen,
+                                           dtype=dtype, device=dev),
+                        tokens=x, gen=gen, impl="flash").tokens
+        runs[dev] = (toks.cpu(), logits.float().cpu(), n1 - n0,
+                     flash_attention.launches - n1)
+    return runs["cuda"], runs["cpu"]
+
+
+@pytest.mark.parametrize("family", ["hybrid", "ssm"])
+def test_zamba2_smoke_generate_card_equals_cpu(cuda, family):
+    """zamba2-smoke (and its ``ssm`` variant) served on the card against the
+    CPU from the same parameters: the flash kernel launches once a
+    shared-block application of the prefill (n_super = 2; none for
+    ``ssm``) and never in decode; the last-token logits within the CPU
+    tests' bf16 tolerances for the family (``tests/test_torch_hybrid.py``:
+    relative L2 0.2, max |d| 1.0; a random Mamba2 stack amplifies an ulp
+    of rounding), greedy first tokens equal where the margin exceeds
+    1.0."""
+    from repro_torch.models.model import n_super
+    cfg = get_smoke_config("zamba2-7b").replace(family=family)
+    prompts = torch.randint(0, cfg.vocab, (4, 70),
+                            generator=torch.Generator().manual_seed(1))
+    (tg, lg, pg, gg), (tc, lc, pc, gc) = _card_and_cpu(cfg, prompts, 16)
+    want = n_super(cfg) if family == "hybrid" else 0
+    assert (pg, gg) == (want, want)              # decode launches 0
+    assert (pc, gc) == (0, 0)
+    assert bool(torch.isfinite(lg).all())
+    assert ((lg - lc).norm() / lc.norm()).item() <= 0.2
+    assert (lg - lc).abs().max().item() <= 1.0
+    top2 = lc.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1.0
+    assert torch.equal(tg[clear, 0], tc[clear, 0])
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"])
+def test_moe_smoke_generate_card_equals_cpu(cuda, arch):
+    """qwen2-moe-smoke and qwen3-moe-smoke served on the card against the
+    CPU.  In bf16 (the serving type) flash launches once a layer of the
+    prefill and never in decode, and the logits are finite; a near-tie of
+    two gates routes a token apart on the two devices in bf16
+    (``tests/test_torch_moe.py``), so the values are held in f32, where
+    the router's inputs agree to f32 rounding: the last-token logits
+    within 1e-4 of the largest (f32 sums in other orders), greedy tokens
+    equal where the first margin exceeds 1e-3."""
+    cfg = get_smoke_config(arch)
+    prompts = torch.randint(0, cfg.vocab, (4, 70),
+                            generator=torch.Generator().manual_seed(1))
+    (tg, lg, pg, gg), (_, _, pc, gc) = _card_and_cpu(cfg, prompts, 16)
+    assert (pg, gg) == (cfg.n_layers, cfg.n_layers)   # decode launches 0
+    assert (pc, gc) == (0, 0)
+    assert bool(torch.isfinite(lg).all()) and tg.shape == (4, 16)
+    (tg, lg, _, _), (tc, lc, _, _) = _card_and_cpu(cfg, prompts, 16,
+                                                   torch.float32)
+    assert (lg - lc).abs().max().item() <= 1e-4 * lc.abs().max().item()
+    top2 = lc.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(tg[clear, 0], tc[clear, 0])
+
+
 # ----------------------------------------------- the EPaxos kernel's fan-in
 @pytest.mark.parametrize("F", [5, 9, 17, 25, 49])
 @pytest.mark.parametrize("rows", [8, 4096])

@@ -26,7 +26,8 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.kernels.pig_aggregate",
               "repro_torch.collectives.schedules",
               "repro_torch.launch.mesh", "repro_torch.models.rwkv",
-              "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
+              "repro_torch.models.ssm", "repro_torch.models.moe",
+              "repro_torch.kernels.ssm_scan",
               "repro_torch.faults.plan", "repro_torch.core.workload",
               "repro_torch.core.network", "repro_torch.experiments.catalog",
               "repro_torch.core.jaxsim", "repro_torch.core.analytical",

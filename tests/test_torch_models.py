@@ -1,5 +1,8 @@
-"""The port's dense model zoo against the JAX package, on the CPU, at the
-smoke configs, from parameters carried across by ``params_from_jax``.
+"""The port's model zoo against the JAX package, on the CPU: every config's
+parameter tree, and the dense families at the smoke configs, from
+parameters carried across by ``params_from_jax`` (the ``moe``, ``ssm`` and
+``hybrid`` families' runs are in ``tests/test_torch_moe.py`` and
+``tests/test_torch_hybrid.py``).
 
 Tolerances, each with its reason:
 - f32 (parameters and inputs cast to f32 on both sides, which holds the
@@ -28,14 +31,15 @@ from repro import models as jmodels
 from repro.models import layers as jlayers
 from repro_torch import configs, convert
 from repro_torch.kernels import flash_attention
-from repro_torch.models import layers, model
+from repro_torch.models import layers, model, moe, ssm
+from repro_torch.models.config import param_count_shortfall
 
 torch.set_num_threads(1)
 
 DENSE = ["granite_8b", "gemma_7b", "qwen2_5_32b", "h2o_danube_1_8b",
          "musicgen_large", "internvl2_76b"]
-OTHER = {"qwen2_moe_a2_7b": "11b", "qwen3_moe_235b_a22b": "11b",
-         "zamba2_7b": "11c"}
+# every config of the zoo, and zamba2's test-only ``ssm`` variant
+ZOO = [(a, None) for a in configs.ARCHS] + [("zamba2_7b", "ssm")]
 B, S, STEPS = 2, 16, 8
 LOGIT_TOL = 0.08
 CACHE_RTOL, CACHE_ATOL = 2.0 ** -6, 0.05
@@ -143,10 +147,76 @@ def test_gated_mlp_matches(act):
 
 
 # ------------------------------------------------------------------ params
-@pytest.mark.parametrize("arch", DENSE)
-def test_params_from_jax_maps_every_leaf(arch):
-    cfg, jp = _jax_params(arch)
+def _config(package, arch, family, smoke):
+    cfg = (package.get_smoke_config if smoke else package.get_config)(arch)
+    return cfg if family is None else cfg.replace(family=family)
+
+
+def _id(case):
+    arch, family = case
+    return arch if family is None else f"{arch}-{family}"
+
+
+@pytest.mark.parametrize("case", ZOO, ids=_id)
+def test_every_config_builds_the_reference_tree(case):
+    """At full width on the meta device, the port's model for each config
+    has one parameter for each leaf of the reference's ``init_params`` tree
+    (``jax.eval_shape``: no weights made) and each layer's slice, in shape
+    and dtype, and ``param_tree_shapes`` gives that tree."""
+    arch, family = case
+    cfg = _config(configs, arch, family, smoke=False)
+    jcfg = _config(jconfigs, arch, family, smoke=False)
+    tree = jax.eval_shape(lambda k: jmodels.init_params(jcfg, k),
+                          jax.random.PRNGKey(0))
+    ours = dict(model.model_class(cfg)(cfg, device="meta").named_parameters())
+    n = 0
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        keys = [p.key for p in path]
+        rows = range(cfg.n_layers) if keys[0] == "layers" else [None]
+        for i in rows:
+            name = ".".join(keys if i is None
+                            else ["layers", str(i)] + keys[1:])
+            shape = leaf.shape if i is None else leaf.shape[1:]
+            assert tuple(ours[name].shape) == shape, name
+            assert str(ours[name].dtype).removeprefix("torch.") == \
+                leaf.dtype.name, name
+            n += 1
+    assert n == len(ours)
+    shapes = jax.tree.map(lambda a: (a.shape, a.dtype.name), tree)
+    got = jax.tree.map(
+        lambda t: (t[0], str(t[1]).removeprefix("torch.")),
+        model.param_tree_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    assert got == shapes
+    total = sum(t.numel() for t in ours.values())
+    assert total == cfg.param_count() + param_count_shortfall(cfg)
+
+
+def test_param_count_fault_of_the_reference():
+    """The reference's ``param_count`` is short by n_layers * ((H - h) d +
+    3H - 2h) for the Mamba2 families: 20 at zamba2-smoke, 24,408,216 for
+    zamba2-7b (81 x 301,336); the port's copy of the formula keeps it."""
+    for smoke, short in ((True, 20), (False, 24_408_216)):
+        cfg = _config(configs, "zamba2_7b", None, smoke)
+        jcfg = _config(jconfigs, "zamba2_7b", None, smoke)
+        tree = jax.eval_shape(lambda k: jmodels.init_params(jcfg, k),
+                              jax.random.PRNGKey(0))
+        leaves = sum(a.size for a in jax.tree.leaves(tree))
+        assert param_count_shortfall(cfg) == short
+        assert leaves - jcfg.param_count() == short
+        assert cfg.param_count() == jcfg.param_count()
+    assert configs.get_config("zamba2_7b").param_count() == 6_725_509_560
+
+
+@pytest.mark.parametrize("case", [(a, None) for a in DENSE] + [
+    ("qwen2_moe_a2_7b", None), ("qwen3_moe_235b_a22b", None),
+    ("zamba2_7b", None), ("zamba2_7b", "ssm")], ids=_id)
+def test_params_from_jax_maps_every_leaf(case):
+    arch, family = case
+    cfg = _config(jconfigs, arch, family, smoke=True)
+    jp = (_jax_params(arch)[1] if family is None
+          else jmodels.init_params(cfg, jax.random.PRNGKey(0)))
     tp = convert.params_from_jax(jax.tree.map(np.asarray, jp), cfg, "cpu")
+    assert type(tp) is model.model_class(cfg)
     ours = dict(tp.named_parameters())
     flat = jax.tree_util.tree_flatten_with_path(jp)[0]
     n = 0
@@ -167,17 +237,8 @@ def test_params_from_jax_maps_every_leaf(arch):
                 assert np.array_equal(t.detach().numpy(), a), name
             n += 1
     assert n == len(ours)
-    assert sum(t.numel() for t in ours.values()) == cfg.param_count()
-
-
-@pytest.mark.parametrize("arch", sorted(OTHER))
-def test_unported_families_raise(arch):
-    cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=f"item {OTHER[arch]}"):
-        model.init_params(cfg, torch.Generator().manual_seed(0),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match=f"item {OTHER[arch]}"):
-        model.make_cache(cfg, 1, 8, device="cpu")
+    assert sum(t.numel() for t in ours.values()) == \
+        cfg.param_count() + param_count_shortfall(cfg)
 
 
 def test_init_params_scales():
@@ -195,21 +256,41 @@ def test_init_params_scales():
     assert torch.equal(p.layers[1].mlp.w2, q.layers[1].mlp.w2)
 
 
-@pytest.mark.parametrize("make", [
-    lambda cfg: model.init_params(cfg, torch.Generator()),
-    lambda cfg: model.make_cache(cfg, 1, 8),
-    lambda cfg: layers.empty_kv_cache(cfg, 1, 8),
-    lambda cfg: model.DenseModel(cfg),
-    lambda cfg: layers.Attention(cfg),
-    lambda cfg: layers.GatedMLP(cfg.d_model, cfg.d_ff),
+@pytest.mark.parametrize("arch,make", [
+    ("granite_8b", lambda cfg: model.init_params(cfg, torch.Generator())),
+    ("granite_8b", lambda cfg: model.make_cache(cfg, 1, 8)),
+    ("granite_8b", lambda cfg: layers.empty_kv_cache(cfg, 1, 8)),
+    ("granite_8b", lambda cfg: model.DenseModel(cfg)),
+    ("granite_8b", lambda cfg: layers.Attention(cfg)),
+    ("granite_8b", lambda cfg: layers.GatedMLP(cfg.d_model, cfg.d_ff)),
+    ("zamba2_7b", lambda cfg: model.init_params(cfg, torch.Generator())),
+    ("zamba2_7b", lambda cfg: model.make_cache(cfg, 1, 8)),
+    ("zamba2_7b", lambda cfg: ssm.empty_ssm_cache(cfg, 1)),
+    ("zamba2_7b", lambda cfg: ssm.SSMBlock(cfg)),
+    ("zamba2_7b", lambda cfg: model.HybridModel(cfg)),
+    ("qwen2_moe_a2_7b", lambda cfg: moe.MoE(cfg)),
+    ("qwen2_moe_a2_7b", lambda cfg: model.init_params(cfg,
+                                                      torch.Generator())),
 ], ids=["init_params", "make_cache", "empty_kv_cache", "DenseModel",
-        "Attention", "GatedMLP"])
-def test_default_device_is_cuda(make, monkeypatch):
+        "Attention", "GatedMLP", "init_params-hybrid", "make_cache-hybrid",
+        "empty_ssm_cache", "SSMBlock", "HybridModel", "MoE",
+        "init_params-moe"])
+def test_default_device_is_cuda(arch, make, monkeypatch):
     """``device=None`` is the CUDA device, as at every entry point of the
     port: without one these raise instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA device"):
-        make(configs.get_smoke_config("granite_8b"))
+        make(configs.get_smoke_config(arch))
+
+
+def test_unknown_family_raises():
+    cfg = configs.get_smoke_config("granite_8b").replace(family="mystery")
+    for make in (lambda: model.model_class(cfg),
+                 lambda: model.make_cache(cfg, 1, 8, device="cpu"),
+                 lambda: model.init_params(cfg, torch.Generator(),
+                                           device="cpu")):
+        with pytest.raises(ValueError, match="unknown family mystery"):
+            make()
 
 
 def test_init_params_rejects_a_generator_elsewhere(monkeypatch):
