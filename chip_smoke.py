@@ -84,7 +84,7 @@ Phases, in order; any failure exits non-zero:
              the sm90 fan-in == through the plain one, bit for bit (two
              launches an EPaxos scan step, one a group one, none in the
              plain run); then ``run_megagrid`` at the full axes
-             and 2**17 cells (every bucket of the 1,000,000-cell study,
+             and 2**16 cells (every bucket of the 1,000,000-cell study,
              whose CLI run takes ~280 s): per bucket cells,
              scan steps, retries,
              wall and host stacking seconds, the launches (one a group
@@ -205,6 +205,32 @@ Phases, in order; any failure exits non-zero:
              launch's inputs then through the kernel and the plain
              version); qwen2-moe-smoke and qwen3-moe-smoke card vs CPU
              (bf16: the launches alone; f32: the values).
+27. train  - rwkv6-3b trained at full width and depth (32 layers, random
+             bf16 weights, the decay LoRA-B as in phase 16) through
+             ``build_train_step`` with the JAX training CLI's options
+             (remat, impl "auto", AdamW lr 3e-3, 10 warmup steps) on 3
+             batches of 4 x 2048 from ``SyntheticLMStream``:
+             ssm_scan_sm90 64 times a step (the forward and remat's
+             recompute), no other kernel; the loss finite and within
+             (0.1, 3) ln V; every parameter moved, ``opt.step`` 3; step 1
+             run once more from the same state, bit-identical; one
+             layer's scan through the autograd Function vs the plain
+             version (y within phase 14's bound, input gradients
+             bit-equal); an f32 copy at 4 layers, impl auto vs ref (loss
+             and gradients); warm step ms, tokens/s, 6 N tokens / (step x
+             989 TFLOP/s), peak memory, the kernel's and the plain
+             backward's shares of the step;
+28. train  - h2o-danube-1.8b (the JAX training CLI's default arch, 24
+             layers, sliding window 4096) trained the same way: the
+             chunked plain attention, no kernel launch; the same figures;
+             ``lm_loss(impl="flash")`` and ``ops.flash_attention`` on CUDA
+             tensors that require grad raise ``ValueError``;
+29. smokes - every family's smoke config in f32 from one CPU init: loss
+             and gradients and one step (moments, parameters) card vs CPU,
+             microbatch 2 vs 1 on the card (loss and moments), a
+             checkpoint restart on the card (save at step 2, restore,
+             replay 2 steps) bit for bit, and the CPU's checkpoint
+             restored on the card bit for bit.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -251,10 +277,11 @@ CONFLICT_CHECK = "conflict/N=25/c=0.1/batch"
 MEGAGRID_WINDOWS = ("megagrid/slice/N=9/R=2/PRC=1/lan",
                     "megagrid/slice/N=9/R=2/PRC=1/wan3",
                     "megagrid/slice/N=25/R=4/PRC=0/lan")
-# phase 22's study: 2**17 cells (every one of the 24 buckets, an eighth of
-# the chunks) keeps the script, phases 24-26 included, inside 600 s; the
-# 1,000,000-cell study runs from the megagrid CLI (README)
-MEGAGRID_CELLS = 2 ** 17
+# phase 22's study: 2**16 cells (every one of the 24 buckets, a sixteenth
+# of the chunks; it was 2**18, then 2**17 before the training phases 27-29
+# came) keeps the script inside 600 s; the 1,000,000-cell study runs from
+# the megagrid CLI (README)
+MEGAGRID_CELLS = 2 ** 16
 # the study's buckets run whole-chunk through the sm90 fan-in and the plain
 # one on the card (phase 22): each group width class, both requests a step
 # (B = min(8, clients class)), and an EPaxos bucket
@@ -392,6 +419,40 @@ MOE_SMOKE_F32_TOL, MOE_SMOKE_F32_REL_L2 = 1e-3, 1e-5
 # (tests/test_torch_moe.py): 2**-6 of the largest |value|, an ulp or two
 # of rounding in the expert products, the combine and the shared expert
 MOE_GATES_REL, MOE_TIE, MOE_BLOCK_REL = 1e-4, 1e-6, 2.0 ** -6
+# training (phases 27-29): the JAX training CLI's options (launch/train.py:
+# remat, impl "auto", AdamW lr 3e-3 with 10 warmup steps over 50) at batch
+# 4 x 2048 from the data stream, 3 steps, at full width and depth
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 3
+TRAIN_ADAMW = dict(lr=3e-3, warmup_steps=10, total_steps=50)
+TRAIN_ARCH_DENSE = "h2o-danube-1.8b"
+# rwkv6-3b's f32 copy at 4 of its 32 layers, full width, impl "auto" vs
+# "ref": the scan's forward through ssm_scan_sm90's 3xTF32 (phase 14's
+# 2e-4 bound; ~1e-6 on f32 inputs), its backward the plain version's at
+# those inputs, so the loss to TRAIN_LOSS_REL and each gradient leaf to
+# TRAIN_F32_GRAD_REL relative L2 (set before the first run; PERF.md §6).
+# The decay's clamp ([-2.3, -1e-4], models/rwkv.py) makes the gradient
+# discontinuous, so any rounding of the scan's output moves whole
+# elements in and out of it: the gradients measured 2.05e-3 worst at the
+# parameters after step 1 (in two calls) and 4.65e-4 at those after step
+# 3 (an H100 80GB HBM3 at 700 W), and the plain version moves its own
+# gradients by as much when its output moves by one f32 ulp.  So the
+# bound is also TRAIN_ENVELOPE times that envelope, measured in the same
+# run at the same parameters
+TRAIN_F32_LAYERS, TRAIN_LOSS_REL, TRAIN_F32_GRAD_REL = 4, 1e-5, 1e-3
+TRAIN_ENVELOPE = 2.0
+# phase 29: every family's smoke config in f32, card vs CPU, at batch 4 x
+# 32 (the CPU tests' tolerances, tests/test_torch_train.py: loss 1e-5,
+# gradients, moments and parameters 1e-4 relative L2)
+TRAIN_SMOKES = (("h2o-danube-1.8b", None), ("granite-8b", None),
+                ("qwen2-moe-a2.7b", None), ("qwen3-moe-235b-a22b", None),
+                ("rwkv6-3b", None), ("zamba2-7b", "ssm"), ("zamba2-7b", None),
+                ("internvl2-76b", None), ("musicgen-large", None))
+# microbatch 2 against 1 on the card compares the loss and AdamW's
+# moments after step 1 (from zero: mu = (1 - b1) g, nu = (1 - b2) g^2),
+# so the gradients, to the same TRAIN_SMOKE_GRAD_REL; the parameters
+# after step 1 move by about lr x sign(g), which turns a gradient element
+# near zero into a whole step
+TRAIN_SMOKE_GRAD_REL = 1e-4
 
 
 def log(*a):
@@ -2750,6 +2811,443 @@ def check_moe_smoke(device):
                     MOE_SMOKE_F32_TOL, MOE_SMOKE_F32_REL_L2, dtype="f32")
 
 
+# -------------------------------------------------------------- phase 27
+def train_state(params):
+    """A ``TrainState`` of ``params`` with zero AdamW moments."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState
+    return TrainState(params, adamw_init(params))
+
+
+def train_options(**kw):
+    """The JAX training CLI's options (``launch/train.py``): remat, impl
+    "auto", AdamW lr 3e-3 with 10 warmup steps over 50."""
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainOptions
+    return TrainOptions(remat=True, impl="auto",
+                        adamw=AdamWConfig(**TRAIN_ADAMW), **kw)
+
+
+def train_batches(cfg, device, n, B=TRAIN_B, S=TRAIN_S, f32=False):
+    """Batches 0..n-1 of ``SyntheticLMStream`` (seed 0) on ``device``;
+    ``f32``: a stub frontend's bf16 embeddings cast to f32."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    stream = SyntheticLMStream(cfg, DataConfig(B, S), device=device)
+    out = []
+    for s in range(n):
+        b = stream.batch_at(s)
+        if f32 and "embeds" in b:
+            b["embeds"] = b["embeds"].to(torch.float32)
+        out.append(b)
+    return out
+
+
+def run_train(device, cfg, state, batches, kernel, want, first=None):
+    """The main path of the training slice: ``build_train_step`` with
+    ``train_options`` over ``batches``, every kernel count set to 0 just
+    before and read just after; the sm90 entry of ``kernel`` (a kernel
+    module, or None) launches ``want`` times a step and no other kernel at
+    all.  ``first``, if given, is called with the loss and the state after
+    step 1, outside the step's wall.  Returns (its launches, [(loss,
+    grad_norm, lr, wall s)] a step, peak bytes)."""
+    import torch
+    from repro_torch.kernels import (flash_attention, pig_aggregate,
+                                     segfanin, ssm_scan)
+    from repro_torch.train import build_train_step
+    step = build_train_step(cfg, train_options())
+    mods = (flash_attention, ssm_scan, segfanin, pig_aggregate)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods:
+        mod.launches = 0
+    flash_attention.launches_sm90 = 0
+    ssm_scan.launches_sm90 = 0
+    rows = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])                   # waits for the device
+        rows.append((loss, float(m["grad_norm"]), float(m["lr"]),
+                     time.perf_counter() - t0))
+        if first is not None and len(rows) == 1:
+            first(m["loss"], state)
+    launches = 0 if kernel is None else kernel.launches
+    sm90 = 0 if kernel is None else kernel.launches_sm90
+    others = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods
+              if m is not kernel}
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    log(f"train    {cfg.name} {n} steps of {TRAIN_B}x{TRAIN_S} tokens "
+        f"(remat, impl auto, AdamW {TRAIN_ADAMW}): loss / grad norm / lr / "
+        f"ms a step {[(round(l, 5), round(g, 4), lr, round(1e3 * s, 3)) for l, g, lr, s in rows]}; "
+        f"kernel launches {launches} (sm90 {sm90}), other kernels "
+        f"{others}; peak memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    if not (launches == sm90 == want * n and not any(others.values())):
+        raise SystemExit(f"{cfg.name} training: launches {launches} (sm90 "
+                         f"{sm90}), expected {want} a step; others {others}")
+    lo, hi = 0.1 * math.log(cfg.vocab), 3.0 * math.log(cfg.vocab)
+    if not all(math.isfinite(r[0]) and lo < r[0] < hi for r in rows):
+        raise SystemExit(f"{cfg.name} training loss out of ({lo}, {hi})")
+    if int(state.opt.step) != n:
+        raise SystemExit(f"{cfg.name}: opt.step {int(state.opt.step)}")
+    return sm90, rows, peak
+
+
+def train_speed(cfg, params, rows, peak):
+    """Warm step ms (the mean of the steps after the first), tokens/s and
+    6 N tokens / (step x 989 TFLOP/s), printed; returns the step ms."""
+    n = sum(p.numel() for p in params.parameters())
+    warm = sum(r[3] for r in rows[1:]) / len(rows[1:])
+    tokens = TRAIN_B * TRAIN_S
+    share = 6 * n * tokens / (warm * BF16_OPS_S)
+    log(f"train    {cfg.name}: {n} parameters; warm step {1e3 * warm:.3f} ms "
+        f"(first {1e3 * rows[0][3]:.3f} ms), {tokens / warm:.2f} tokens/s, "
+        f"6 N tokens / (step x 989 TFLOP/s) = {share:.4f}; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    return 1e3 * warm
+
+
+def checksums(params):
+    """Each parameter's f64 sum: "moved" compares these (an update of
+    +-lr x something to a bf16 tensor changes its sum)."""
+    import torch
+    with torch.no_grad():
+        return {n: p.double().sum().item()
+                for n, p in params.named_parameters()}
+
+
+def host_copy(params):
+    """name -> a host copy of each parameter (the device's peak memory
+    stays the training step's own)."""
+    return {n: p.detach().to("cpu", copy=True)
+            for n, p in params.named_parameters()}
+
+
+def step_again(cfg, params, batch, loss1, after1):
+    """Step 1 of the main path run once more, from ``params`` (the initial
+    parameters, made again from the seed) and zero moments, with the
+    wall of every ``kernels.autograd`` scan backward summed (the device
+    synchronised around each: the plain version's forward again and its
+    gradient).  The loss and the updated parameters must equal the main
+    path's step 1 (``loss1``, ``after1``) bit for bit.  Returns that sum
+    in ms."""
+    import torch
+    from repro_torch.kernels import autograd
+    from repro_torch.train import build_train_step
+    step = build_train_step(cfg, train_options())
+    spent = []
+    backward = autograd._Scan.backward
+
+    def timed(ctx, *grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = backward(ctx, *grads)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    autograd._Scan.backward = staticmethod(timed)
+    try:
+        _, m = step(train_state(params), batch)
+    finally:
+        autograd._Scan.backward = staticmethod(backward)
+    loss = m["loss"].cpu()
+    same = torch.equal(loss, loss1) and all(
+        torch.equal(p.detach().cpu(), after1[n])
+        for n, p in params.named_parameters())
+    log(f"check    {cfg.name} step 1 twice from the same state (the main "
+        f"path's, then once more): loss {loss1.item()} / {loss.item()}, "
+        f"parameters bit-identical={same}")
+    if not same:
+        raise SystemExit(f"{cfg.name}: the same step gave other bits")
+    return 1e3 * sum(spent)
+
+
+def check_scan_function(device):
+    """One layer's scan at rwkv6-3b's training shape (phase 15's inputs,
+    bf16) with the same upstream gradient, through ``ops.ssm_scan`` on
+    inputs that require grad (the kernel forward, ``kernels.autograd``'s
+    backward) against the plain version's own autograd: y within phase
+    14's bound, every input gradient bit-equal."""
+    import torch
+    from repro_torch.kernels import ops, ssm_scan
+    from repro_torch.kernels.ref import ssm_scan_ref
+    name, B, T, H, Dk, Dv, C, decay, dtype, bonus = SSM_TIMED
+    base = ssm_inputs(B, T, H, Dk, Dv, decay, dtype, bonus, device, seed=0)
+    gy = (torch.randn(base[2].shape, device=device,
+                      generator=torch.Generator(device).manual_seed(3))
+          * 0.1).to(base[2].dtype)
+
+    def run(fn):
+        ins = [t.detach().clone().requires_grad_(True) for t in base]
+        y, _ = fn(*ins[:4], u=ins[4], chunk=C, s0=ins[5], return_state=True)
+        y.backward(gy)
+        return y.detach(), [t.grad for t in ins]
+
+    n0 = ssm_scan.launches_sm90
+    got_y, got = run(ops.ssm_scan)
+    launched = ssm_scan.launches_sm90 - n0
+    want_y, want = run(ssm_scan_ref)
+    torch.cuda.synchronize()
+    err, ratio = ssm_error(got_y, want_y)
+    equal = [torch.equal(g, w) for g, w in zip(got, want)]
+    del got, want
+    log(f"check    ssm_scan through the autograd Function at {name} "
+        f"(B={B} T={T} H={H} Dk={Dk} Dv={Dv} chunk {C} bf16, inputs "
+        f"requiring grad): sm90 launches {launched}; y vs the plain version "
+        f"max |d| {err}, worst |d|/tolerance {ratio:.4f}; input gradients "
+        f"(q, k, v, log_a, u, s0) bit-equal to the plain version's "
+        f"autograd: {equal}")
+    if not (launched == 1 and ratio <= 1.0 and all(equal)):
+        raise SystemExit("the ssm_scan autograd Function disagrees")
+
+
+def check_train_f32(device, cfg, params, batch):
+    """An f32 copy of the first ``TRAIN_F32_LAYERS`` layers at full width:
+    one loss and its gradients with impl "auto" (ssm_scan_sm90 in f32) and
+    "ref" (the plain scan), from the same parameters and batch; and the
+    plain version's own envelope: "ref" again with each scan output moved
+    by one f32 ulp."""
+    import torch
+    from repro_torch.kernels import ref, ssm_scan
+    from repro_torch.models import model_class
+    from repro_torch.train import loss_and_grads
+    cut = cfg.replace(n_layers=TRAIN_F32_LAYERS)
+    keep = {n: t.detach().to(torch.float32).clone()
+            for n, t in params.state_dict().items()
+            if not n.startswith("layers.")
+            or int(n.split(".")[1]) < TRAIN_F32_LAYERS}
+    p32 = model_class(cut)(cut, dtype=torch.float32, device="meta")
+    p32.load_state_dict(keep, strict=True, assign=True)
+    del keep
+    n0 = ssm_scan.launches_sm90
+    la, ga = loss_and_grads(p32, cut, batch, "auto")
+    launched = ssm_scan.launches_sm90 - n0
+    lr_, gr = loss_and_grads(p32, cut, batch, "ref")
+    plain = ref.ssm_scan_ref
+
+    def jittered(*a, **kw):
+        out = plain(*a, **kw)
+        y = out[0] if isinstance(out, tuple) else out
+        g = torch.Generator(y.device).manual_seed(7)
+        sign = torch.randint(0, 2, y.shape, generator=g, device=y.device)
+        y = y * (1 + (2 * sign - 1).to(y.dtype) * 2.0 ** -23)
+        return (y,) + out[1:] if isinstance(out, tuple) else y
+    ref.ssm_scan_ref = jittered
+    try:
+        lj, gj = loss_and_grads(p32, cut, batch, "ref")
+    finally:
+        ref.ssm_scan_ref = plain
+    rels = {n: leaf_gap(ga[n], gr[n]) for n in gr}
+    env = {n: leaf_gap(gj[n], gr[n]) for n in gr}
+    worst, worst_env = max(rels, key=rels.get), max(env, key=env.get)
+    bound = max(TRAIN_F32_GRAD_REL, TRAIN_ENVELOPE * env[worst_env])
+    loss_rel = abs(la.item() - lr_.item()) / abs(lr_.item())
+    med = lambda d: sorted(d.values())[len(d) // 2]
+    log(f"check    {cfg.name} f32 copy at {TRAIN_F32_LAYERS} of "
+        f"{cfg.n_layers} layers, full width, the initial parameters, one "
+        f"loss and its gradients impl auto (ssm_scan_sm90 launches "
+        f"{launched}) vs ref: loss {la.item()} vs {lr_.item()} (relative "
+        f"{loss_rel:.3g}, tolerance {TRAIN_LOSS_REL}); gradient leaves' "
+        f"relative L2 worst {rels[worst]:.3g} at {worst}, median "
+        f"{med(rels):.3g}; the plain version's own one-ulp envelope (ref "
+        f"with each scan output moved one f32 ulp: loss {lj.item()}) worst "
+        f"{env[worst_env]:.3g} at {worst_env}, median {med(env):.3g}; "
+        f"bound max({TRAIN_F32_GRAD_REL}, {TRAIN_ENVELOPE} x envelope) = "
+        f"{bound:.3g}")
+    if not (launched == 2 * TRAIN_F32_LAYERS and loss_rel <= TRAIN_LOSS_REL
+            and rels[worst] <= bound):
+        raise SystemExit(f"{cfg.name} f32 training auto != ref")
+
+
+def train_rwkv(device, ssm_ms):
+    """Phase 27: rwkv6-3b trained at full width and depth.  Returns the
+    main path's ssm_scan_sm90 launches."""
+    import torch
+    from repro_torch.kernels import ssm_scan
+    cfg, params, _ = rwkv_inputs(device)
+    batches = train_batches(cfg, device, TRAIN_STEPS)
+    first = {}
+
+    def keep(loss, state):
+        first["loss"], first["params"] = loss.cpu(), host_copy(state.params)
+    before = checksums(params)
+    state = train_state(params)
+    launches, rows, peak = run_train(device, cfg, state, batches, ssm_scan,
+                                     2 * cfg.n_layers, keep)
+    step_ms = train_speed(cfg, params, rows, peak)
+    after = checksums(params)
+    moved = sum(after[n] != before[n] for n in before)
+    log(f"train    {cfg.name}: {moved} of {len(before)} parameters moved")
+    if moved != len(before):
+        raise SystemExit(f"{cfg.name}: a parameter did not move")
+    del state, params
+    torch.cuda.empty_cache()
+    _, params, _ = rwkv_inputs(device)          # the initial parameters
+    check_train_f32(device, cfg, params, batches[0])
+    bwd_ms = step_again(cfg, params, batches[0], first["loss"],
+                        first["params"])
+    del params, first
+    torch.cuda.empty_cache()
+    check_scan_function(device)
+    kernel_ms = 2 * cfg.n_layers * ssm_ms
+    log(f"train    {cfg.name} warm step {step_ms:.3f} ms: ssm_scan_sm90 "
+        f"{2 * cfg.n_layers} x {ssm_ms:.6f} ms (phase 15) = "
+        f"{kernel_ms:.3f} ms, {100 * kernel_ms / step_ms:.2f}% of it; the "
+        f"plain backward of the {cfg.n_layers} scans in a step (timed in "
+        f"step 1's second run, the device synchronised around each) "
+        f"{bwd_ms:.3f} ms, {100 * bwd_ms / step_ms:.2f}% of it")
+    return launches
+
+
+# -------------------------------------------------------------- phase 28
+def train_dense(device):
+    """Phase 28: h2o-danube-1.8b trained at full width and depth (the JAX
+    CLI's default arch): the chunked plain attention at S 2048, no kernel;
+    ``impl="flash"`` refused in ``lm_loss`` and in ``ops.flash_attention``
+    on CUDA tensors that require grad."""
+    import torch
+    from repro_torch.kernels import flash_attention, ops
+    from repro_torch.models import lm_loss
+    cfg, params, _ = new_model(device, TRAIN_ARCH_DENSE)
+    before = checksums(params)
+    batches = train_batches(cfg, device, TRAIN_STEPS)
+    state = train_state(params)
+    _, rows, peak = run_train(device, cfg, state, batches, None, 0)
+    train_speed(cfg, params, rows, peak)
+    after = checksums(params)
+    moved, total = sum(after[n] != before[n] for n in before), len(before)
+    del state
+    refused = []
+    n0 = flash_attention.launches
+    try:
+        lm_loss(params, cfg, batches[0], impl="flash")
+    except ValueError as e:
+        refused.append(str(e))
+    q = torch.randn(1, 128, 4, 128, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    try:
+        ops.flash_attention(q, q, q)
+    except ValueError as e:
+        refused.append(str(e))
+    log(f"train    {cfg.name}: {moved} of {total} parameters moved; "
+        f"impl=flash refused by lm_loss and by ops.flash_attention under "
+        f"grad: {len(refused)} of 2 ({refused[:1]}); flash launches "
+        f"{flash_attention.launches - n0}")
+    if moved != total:
+        raise SystemExit(f"{cfg.name}: a parameter did not move")
+    if len(refused) != 2 or flash_attention.launches != n0:
+        raise SystemExit("impl=flash was not refused under grad")
+
+
+# -------------------------------------------------------------- phase 29
+def leaf_gap(a, b):
+    """Relative L2 of a against b; 0 where both are all zero (a stub
+    frontend's gradients and moments), inf where b alone is."""
+    d, nb = (a.float() - b.float()).norm().item(), b.float().norm().item()
+    return d / nb if nb > 0 else 0.0 if d == 0 else math.inf
+
+
+def state_to(state, device):
+    import copy
+    from repro_torch.optim import OptState
+    from repro_torch.train import TrainState
+    to = lambda d: {n: t.to(device, copy=True) for n, t in d.items()}
+    return TrainState(copy.deepcopy(state.params).to(device),
+                      OptState(to(state.opt.mu), to(state.opt.nu),
+                               state.opt.step.to(device, copy=True)))
+
+
+def train_smoke(device, arch, family, ckpt_dir):
+    """One family's smoke config in f32 from one CPU init: the loss and
+    gradients and one step card vs CPU; microbatch 2 vs 1 on the card; a
+    checkpoint restart on the card (save at step 2, restore, replay 2
+    steps) bit for bit; the CPU's checkpoint restored on the card bit for
+    bit.  Returns (worst relative gap card vs CPU, family name)."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager, state_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.train import build_train_step, loss_and_grads
+    cfg = get_smoke_config(arch)
+    if family:
+        cfg = cfg.replace(family=family)
+    cpu = train_state(init_params(cfg, torch.Generator().manual_seed(0),
+                                  dtype=torch.float32, device="cpu"))
+    card, micro = state_to(cpu, device), state_to(cpu, device)
+    hb = train_batches(cfg, "cpu", 4, B=4, S=32, f32=True)
+    db = [{n: t.to(device) for n, t in b.items()} for b in hb]
+    lc, gc = loss_and_grads(cpu.params, cfg, hb[0], "auto")
+    lg, gg = loss_and_grads(card.params, cfg, db[0], "auto")
+    gaps = {"loss": abs(lg.item() - lc.item()) / abs(lc.item())}
+    gaps["grads"] = max(leaf_gap(gg[n].cpu(), gc[n]) for n in gc)
+    step = build_train_step(cfg, train_options())
+    _, mc = step(cpu, hb[0])
+    _, mg = step(card, db[0])
+    _, mm = build_train_step(cfg, train_options(microbatch=2))(micro, db[0])
+    a, b, m = state_leaves(card), state_leaves(cpu), state_leaves(micro)
+    gaps["step loss"] = abs(mg["loss"].item() - mc["loss"].item()) / abs(
+        mc["loss"].item())
+    gaps["state"] = max(leaf_gap(a[n], b[n]) for n in b
+                        if n != "opt/step")
+    gaps["microbatch 2 loss"] = abs(mm["loss"].item() - mg["loss"].item()) \
+        / abs(mg["loss"].item())
+    gaps["microbatch 2 moments"] = max(leaf_gap(m[n], a[n]) for n in a
+                                       if n.startswith(("opt/mu/", "opt/nu/")))
+    # the restart: save at step 2, go on to step 4; restore, replay
+    step(card, db[1])
+    mgr = CheckpointManager(os.path.join(ckpt_dir, cfg.name + "-card"))
+    mgr.save(2, card)
+    for b_ in db[2:]:
+        step(card, b_)
+    want = state_leaves(card)
+    restored, at = mgr.restore(micro)
+    for b_ in db[2:]:
+        step(restored, b_)
+    got = state_leaves(restored)
+    replay = at == 2 and all(torch.equal(got[n], want[n]) for n in want)
+    # the CPU's checkpoint (after its step 1) restored on the card
+    cmgr = CheckpointManager(os.path.join(ckpt_dir, cfg.name + "-cpu"),
+                             async_save=False)
+    cmgr.save(1, cpu)
+    back, _ = cmgr.restore(card)
+    got = state_leaves(back)
+    crossed = all(torch.equal(got[n], b[n]) for n in b)
+    bound = lambda k: TRAIN_LOSS_REL if "loss" in k else TRAIN_SMOKE_GRAD_REL
+    bad = [k for k, v in gaps.items() if v > bound(k)]
+    log(f"check    {cfg.name} ({cfg.family}, f32) training card vs cpu: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+        + f" (tolerances: loss {TRAIN_LOSS_REL}, the rest "
+        f"{TRAIN_SMOKE_GRAD_REL} relative L2); "
+        f"restart replay bit-identical="
+        f"{replay}; the CPU's checkpoint restored on the card "
+        f"bit-identical={crossed}")
+    if bad or not (replay and crossed):
+        raise SystemExit(f"{cfg.name} training card vs cpu: {bad}, replay "
+                         f"{replay}, restored {crossed}")
+
+
+def train_smokes(device):
+    """Phase 29: every family's smoke config (``TRAIN_SMOKES``) through
+    ``train_smoke``, with deterministic algorithms on (warnings only) so
+    that the card's replays are bit for bit where PyTorch has a
+    deterministic kernel (the MoE dispatch's gathers accumulate their
+    gradient with atomics otherwise)."""
+    import shutil
+    import tempfile
+
+    import torch
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for arch, family in TRAIN_SMOKES:
+            train_smoke(device, arch, family, d)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2848,7 +3346,16 @@ def main() -> int:
     flash_err = max(flash_err, cut_err)
     torch.cuda.empty_cache()
     phase("26 smoke", check_moe_smoke, device)
-    log(f"wall     phases 2-26 together: {sum(walls.values()):.2f} s")
+    torch.cuda.empty_cache()
+
+    ssm_paths = {"rwkv6-3b serve": ssm_launches}
+    ssm_paths["rwkv6-3b train"] = phase("27 train", train_rwkv, device,
+                                        ssm_timing["ms"])
+    torch.cuda.empty_cache()
+    phase("28 train", train_dense, device)
+    torch.cuda.empty_cache()
+    phase("29 smokes", train_smokes, device)
+    log(f"wall     phases 2-29 together: {sum(walls.values()):.2f} s")
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",
@@ -2868,7 +3375,8 @@ def main() -> int:
     ssm = {"name": "ssm_scan_sm90", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssm_scan_sm90.cu",
            "replaces": "src/repro/kernels/ssm_scan.py:26",
-           "launches": ssm_launches, "max_abs_err": ssm_err, **ssm_timing,
+           "launches": sum(ssm_paths.values()), "launches_by_path": ssm_paths,
+           "max_abs_err": ssm_err, **ssm_timing,
            "library_ms": None}
     log(json.dumps({"kernels": [record, flash, pig, ssm]}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of ``repro`` (whose JAX package stays beside it as
 the reference): the batch simulation backend, the model zoo's serving
-path for the dense families, and the Pig collective schedules on
+and training paths, and the Pig collective schedules on
 ``torch.distributed``.
 
 The port mirrors ``repro``'s module names so each counterpart is easy to

@@ -18,6 +18,11 @@ block); caches ``{"kv"}``, ``{"rwkv"}``, ``{"ssm": {conv, state}}`` or
 the hybrid's ``{"ssm", "kv"}``.
 ``tree_from_jax`` carries any nested dict of arrays (gradients, residuals)
 across as the same nested dict of tensors.
+
+``train_state_from_jax`` carries a JAX ``TrainState`` (parameters, AdamW
+moments and step) across, bit for bit; ``stacked_params`` is the inverse
+of the parameters' map (the reference's stacked layout, which the
+checkpoint writer uses).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from .models.model import model_class
+from .models.model import model_class, reference_leaf
 
 
 def cells_from_numpy(batch: Dict[str, np.ndarray], device
@@ -67,14 +72,21 @@ def tree_from_jax(tree: Mapping, device) -> Dict[str, object]:
             else tensor_from_numpy(v, device) for k, v in tree.items()}
 
 
-def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+def _flatten(tree: Mapping, prefix: str = "", sep: str = "."
+             ) -> Dict[str, object]:
     out = {}
     for k, v in tree.items():
         if isinstance(v, Mapping):
-            out.update(_flatten(v, f"{prefix}{k}."))
+            out.update(_flatten(v, f"{prefix}{k}{sep}", sep))
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+def leaf_order(names) -> list:
+    """JAX's flattening order of a tree of nested dicts, given its leaves'
+    "/"-joined names: keys sorted at every level."""
+    return sorted(names, key=lambda n: n.split("/"))
 
 
 def params_from_jax(tree: Mapping, cfg, device):
@@ -100,6 +112,48 @@ def params_from_jax(tree: Mapping, cfg, device):
     # strict: every leaf maps to one parameter and back, shapes equal
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def stack_leaves(named) -> Dict[str, torch.Tensor]:
+    """(port parameter name, tensor) pairs (parameters, or gradients keyed
+    by the parameters' names) -> the JAX ``init_params`` layout, flat:
+    keyed by the JAX leaf names (``embed``, ``layers/time/wr``,
+    ``shared_attn/attn/wq``) in JAX's leaf order, each a host copy in its
+    own dtype, the per-layer tensors stacked on a leading L axis.  The
+    inverse of ``params_from_jax``'s map."""
+    leaves: Dict[str, object] = {}
+    for name, p in named:
+        leaf, layer = reference_leaf(name)
+        t = p.detach().to("cpu", copy=True)
+        if layer is None:
+            leaves[leaf] = t
+        else:
+            leaves.setdefault(leaf, {})[layer] = t
+    return {leaf: (torch.stack([v[i] for i in sorted(v)])
+                   if isinstance(v, dict) else v)
+            for leaf, v in ((n, leaves[n]) for n in leaf_order(leaves))}
+
+
+def stacked_params(model) -> Dict[str, torch.Tensor]:
+    """The port's model's parameters in the JAX layout (``stack_leaves``):
+    what a checkpoint writes."""
+    return stack_leaves(model.named_parameters())
+
+
+def train_state_from_jax(state, cfg, device):
+    """A JAX ``repro.train.TrainState`` (``params``, ``opt`` =
+    ``OptState(mu, nu, step)``, as numpy or JAX arrays) -> the port's
+    ``TrainState`` on ``device``, bit for bit: the model through
+    ``params_from_jax``, the f32 moments keyed by the JAX leaf names (L
+    axis stacked, as the port's ``optim`` keeps them), the int32 step."""
+    from .optim import OptState
+    from .train import TrainState
+    moments = lambda tree: {n: tensor_from_numpy(a, device) for n, a in
+                            _flatten(tree, sep="/").items()}
+    opt = OptState(mu=moments(state.opt.mu), nu=moments(state.opt.nu),
+                   step=tensor_from_numpy(np.asarray(state.opt.step,
+                                                     np.int32), device))
+    return TrainState(params_from_jax(state.params, cfg, device), opt)
 
 
 def cache_from_jax(cache: Mapping, device) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -1,13 +1,18 @@
 """Device dispatch for the port's kernels: model code calls these.
 
 A CPU tensor goes to the plain version in ``ref``; a CUDA tensor goes to
-the hand-written kernel.  There is no fallback between the two."""
+the hand-written kernel.  There is no fallback between the two.  With
+grad enabled and an input that requires grad, ``ssm_scan`` on the card
+goes through ``autograd.ssm_scan`` (the kernel forward, the plain
+version's gradient) and ``flash_attention`` on the card raises (no
+backward; see ``autograd``)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from . import autograd
 from . import ssm_scan as _ssm_scan
 from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
@@ -25,10 +30,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     112, h2o-danube's 80) is padded with zeros to the next one and scaled
     by 1/sqrt of its own Dh, as the TPU wrapper pads to 128
     (``flash_attention.flash_attention_padded``).  A CPU tensor runs the
-    plain version, which takes any Dh."""
+    plain version, which takes any Dh.  On a CUDA tensor that requires
+    grad, with grad enabled, it raises a ``ValueError``
+    (``autograd.FLASH_NO_GRAD``)."""
     if q.device.type == "cpu":
         return flash_attention_bshd(q, k, v, causal=causal)
+    if _needs_grad(q, k, v):
+        raise ValueError(autograd.FLASH_NO_GRAD)
     return flash_attention_padded(q, k, v, causal=causal)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
 
 
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,11 +64,18 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     chunk, so ``chunk * max|log_a|`` must stay well under log(f32 max) ~ 88.
     RWKV6 clamps log_a to [-2.3, -1e-4] and passes ``chunk=16`` (e^36.8 at
     most); at the default chunk of 64 its decays overflow, here and in the
-    TPU kernel."""
+    TPU kernel.
+
+    Gradients: on a CUDA tensor, with grad enabled and any input that
+    requires grad, the call goes through ``autograd.ssm_scan`` after the
+    casts above: the kernel's output forward, the plain version's exact
+    gradient backward (the JAX package differentiates its plain scan)."""
     f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
-    return _ssm_scan.ssm_scan(q.contiguous(), k.contiguous(), v.contiguous(),
-                              f32(log_a), u=f32(u), chunk=chunk, s0=f32(s0),
-                              return_state=return_state)
+    args = (q.contiguous(), k.contiguous(), v.contiguous(), f32(log_a))
+    kw = dict(u=f32(u), chunk=chunk, s0=f32(s0), return_state=return_state)
+    if q.device.type == "cuda" and _needs_grad(*args, kw["u"], kw["s0"]):
+        return autograd.ssm_scan(_ssm_scan.ssm_scan, *args, **kw)
+    return _ssm_scan.ssm_scan(*args, **kw)
 
 
 def pig_aggregate(shards: torch.Tensor, scales: torch.Tensor,

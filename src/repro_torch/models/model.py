@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (Attention, GatedMLP, attention_block, empty_kv_cache,
@@ -217,6 +218,17 @@ def param_tree_shapes(cfg: ModelConfig, dtype=torch.bfloat16) -> dict:
     return tree
 
 
+def reference_leaf(name: str) -> tuple:
+    """A parameter's name in the port (``layers.3.time.wr``) -> its leaf
+    in the JAX ``init_params`` tree (``layers/time/wr``) and its index on
+    that leaf's stacked L axis (``None`` for a leaf that is not stacked:
+    ``embed``, ``final_norm``, ``shared_attn/...``)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return "/".join(["layers"] + parts[2:]), int(parts[1])
+    return "/".join(parts), None
+
+
 # ================================================================== blocks
 def _dense_block(lp: DenseBlock, x, cfg: ModelConfig, positions, cache, impl):
     h, nc = attention_block(lp.attn, rmsnorm(x, lp.ln1, cfg.norm_eps),
@@ -280,16 +292,45 @@ def _embed(params: DenseModel, tokens=None, embeds=None):
 
 
 # ================================================================== forward
+def _segments(params: DenseModel, cfg: ModelConfig, positions, impl):
+    """The uncached layer stack as the functions x -> x that the JAX
+    package wraps in ``jax.checkpoint`` (``repro.models.model.
+    forward_hidden``): one a layer for the dense, vlm, audio, moe, rwkv
+    and ssm families; for the hybrid one a super-block (``attn_every``
+    Mamba2 layers and the shared block), then one a tail layer."""
+    def layer(lp):
+        return lambda x: _block(lp, x, cfg, positions, None, impl)[0]
+
+    if cfg.family != "hybrid":
+        return [layer(lp) for lp in params.layers]
+    k, ns = cfg.attn_every, n_super(cfg)
+
+    def super_block(j):
+        def run(x):
+            for lp in params.layers[j * k:(j + 1) * k]:
+                x = _block(lp, x, cfg, positions, None, impl)[0]
+            return _shared_attn_block(params.shared_attn, x, cfg, positions,
+                                      None, impl)[0]
+        return run
+    return ([super_block(j) for j in range(ns)]
+            + [layer(lp) for lp in params.layers[ns * k:]])
+
+
 def forward_hidden(params: DenseModel, cfg: ModelConfig, tokens=None,
-                   embeds=None, positions=None, impl: str = "ref"
-                   ) -> torch.Tensor:
-    """Evaluation forward pass -> final hidden states (B,S,D)."""
+                   embeds=None, positions=None, impl: str = "ref",
+                   remat: bool = False) -> torch.Tensor:
+    """Training / evaluation forward pass -> final hidden states (B,S,D).
+    ``remat``: each segment of ``_segments`` runs under
+    ``torch.utils.checkpoint`` (non-reentrant), so the backward recomputes
+    its activations instead of keeping them, as ``jax.checkpoint`` does;
+    the results are bit-identical either way."""
     x = _embed(params, tokens, embeds)
     B, S = x.shape[:2]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    x = _layers(params, cfg, x, positions, None, impl)
+    for seg in _segments(params, cfg, positions, impl):
+        x = checkpoint(seg, x, use_reentrant=False) if remat else seg(x)
     return rmsnorm(x, params.final_norm, cfg.norm_eps)
 
 
@@ -301,9 +342,32 @@ def logits_from_hidden(params: DenseModel, cfg: ModelConfig,
 
 
 def forward(params, cfg, tokens=None, embeds=None, positions=None,
-            impl="ref"):
-    x = forward_hidden(params, cfg, tokens, embeds, positions, impl)
+            impl="ref", remat=False):
+    x = forward_hidden(params, cfg, tokens, embeds, positions, impl, remat)
     return logits_from_hidden(params, cfg, x)
+
+
+# ================================================================== loss
+def lm_loss(params: DenseModel, cfg: ModelConfig, batch: dict,
+            impl: str = "ref", remat: bool = True) -> torch.Tensor:
+    """Next-token CE, f32 accumulation; labels < 0 are masked: the sum of
+    logsumexp minus the label's logit over the mask, over max(sum(mask),
+    1).  ``batch``: ``tokens`` (or ``embeds``) and ``labels`` (B,S).
+    ``impl="flash"`` raises a ``ValueError`` on every device before any
+    work: the flash kernels have no backward (``kernels.autograd``)."""
+    if impl == "flash":
+        from ..kernels.autograd import FLASH_NO_GRAD
+        raise ValueError(FLASH_NO_GRAD)
+    x = forward_hidden(params, cfg, tokens=batch.get("tokens"),
+                       embeds=batch.get("embeds"), impl=impl, remat=remat)
+    logits = logits_from_hidden(params, cfg, x).to(torch.float32)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    nll = (lse - ll) * mask
+    return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
 
 
 # ================================================================== serving

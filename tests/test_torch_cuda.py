@@ -924,3 +924,105 @@ def test_jaxsim_card_equals_cpu(cuda):
     y = jaxsim.latency_curve([100.0, 1000.0, 1800.0], 25, 3, device="cpu")
     for k in y:
         torch.testing.assert_close(x[k].cpu(), y[k], rtol=1e-6, atol=0)
+
+
+# ------------------------------------------------------------- training
+def _loss_and_grads(model, cfg, batch, impl="auto", remat=True):
+    from repro_torch import convert
+    from repro_torch.train import loss_and_grads
+    loss, grads = loss_and_grads(model, cfg, batch, impl, remat)
+    return loss.cpu(), convert.stack_leaves(grads.items())
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "h2o-danube-1.8b"])
+def test_training_grads_card_equal_cpu_in_f32(cuda, arch):
+    """One f32 loss and its gradients from the same parameters and batch,
+    card vs CPU: the loss to 1e-5 relative, each gradient leaf to 1e-4
+    relative L2 (f32 sums in other orders; rwkv's scan through
+    ssm_scan_sm90's 3xTF32 forward and the plain version's gradient)."""
+    import copy
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    cfg = get_smoke_config(arch)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0),
+                      dtype=torch.float32, device="cpu")
+    card = copy.deepcopy(cpu).to(cuda)
+    batch = SyntheticLMStream(cfg, DataConfig(2, 40), device="cpu").batch_at(0)
+    n0 = ssm_scan.launches_sm90
+    lg, gg = _loss_and_grads(card, cfg, {k: t.to(cuda)
+                                         for k, t in batch.items()})
+    launched = ssm_scan.launches_sm90 - n0
+    lw, gw = _loss_and_grads(cpu, cfg, batch)
+    assert launched == (2 * cfg.n_layers if cfg.family == "rwkv" else 0)
+    assert abs(lg.item() - lw.item()) <= 1e-5 * abs(lw.item())
+    for name, w in gw.items():
+        assert (gg[name] - w).norm() <= 1e-4 * w.norm(), name
+
+
+def test_scan_function_on_the_card(cuda):
+    """``ops.ssm_scan`` on CUDA tensors that require grad: the output has a
+    ``grad_fn`` and is the kernel's (within ``_scan_close``), and every
+    input gradient equals the plain version's own, bit for bit."""
+    base = _scan_inputs(5, 2, 100, 2, 64, 64, torch.bfloat16, cuda, True,
+                        rwkv=True)
+    gy = torch.randn(2, 100, 2, 64, generator=torch.Generator().manual_seed(
+        6)).to(torch.bfloat16).to(cuda)
+
+    def run(fn):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        y, _ = fn(*ins[:4], u=ins[4], chunk=16, s0=ins[5], return_state=True)
+        y.backward(gy)
+        return y, [t.grad for t in ins]
+
+    n0 = ssm_scan.launches_sm90
+    got_y, got = run(ops.ssm_scan)
+    assert ssm_scan.launches_sm90 == n0 + 1
+    want_y, want = run(ref.ssm_scan_ref)
+    torch.cuda.synchronize()
+    assert got_y.grad_fn is not None and _scan_close(got_y, want_y)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_rwkv_training_launches_the_scan(cuda, remat):
+    """rwkv6-smoke's loss and backward with ``impl="auto"``: ssm_scan_sm90
+    once a layer in the forward and once more a layer with remat (the
+    backward recomputes each layer's forward); every time-mix weight gets
+    a gradient (LoRA-B drawn non-zero: at the init's zero the LoRA and
+    ``mu_w`` get none); no other kernel launches."""
+    cfg = get_smoke_config("rwkv6-3b")
+    model = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    with torch.no_grad():
+        for lp in model.layers:
+            lp.time.w_lora_b.normal_(generator=torch.Generator(
+                cuda).manual_seed(2))
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    batch = SyntheticLMStream(cfg, DataConfig(2, 64), device=cuda).batch_at(0)
+    n0, f0 = ssm_scan.launches_sm90, flash_attention.launches
+    _, grads = _loss_and_grads(model, cfg, batch, remat=remat)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches_sm90 - n0 == cfg.n_layers * (2 if remat else 1)
+    assert flash_attention.launches == f0
+    for leaf in ("wr", "wk", "wv", "w_lora_a", "u", "w0", "mu_w"):
+        g = grads[f"layers/time/{leaf}"]
+        assert bool(torch.isfinite(g.float()).all()), leaf
+        assert g.float().abs().sum() > 0, leaf
+
+
+def test_flash_attention_refuses_grad_on_the_card(cuda):
+    from repro_torch.models import lm_loss
+    q = torch.randn(1, 64, 4, 64, device=cuda, dtype=torch.bfloat16)
+    k = q.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="no backward"):
+        ops.flash_attention(q, k, k)
+    with torch.no_grad():
+        assert ops.flash_attention(q, k, k).shape == q.shape
+    cfg = get_smoke_config("granite-8b")
+    model = init_params(cfg, torch.Generator(cuda).manual_seed(0),
+                        device=cuda)
+    toks = torch.zeros(1, 8, dtype=torch.int32, device=cuda)
+    n0 = flash_attention.launches
+    with pytest.raises(ValueError, match="no backward"):
+        lm_loss(model, cfg, {"tokens": toks, "labels": toks}, impl="flash")
+    assert flash_attention.launches == n0

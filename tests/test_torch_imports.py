@@ -31,7 +31,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.faults.plan", "repro_torch.core.workload",
               "repro_torch.core.network", "repro_torch.experiments.catalog",
               "repro_torch.core.jaxsim", "repro_torch.core.analytical",
-              "repro_torch.experiments.megagrid"):
+              "repro_torch.experiments.megagrid",
+              "repro_torch.kernels.autograd", "repro_torch.optim.adamw",
+              "repro_torch.data.pipeline", "repro_torch.train.step",
+              "repro_torch.checkpoint.manager", "repro_torch.launch.train"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
