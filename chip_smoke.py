@@ -232,6 +232,25 @@ Phases, in order; any failure exits non-zero:
              replay 2 steps) bit for bit, and the CPU's checkpoint
              restored on the card bit for bit.
 
+30. shard  - the sharding layer on a one-rank NCCL world and its (1, 1)
+             ``("data", "model")`` ``DeviceMesh``: granite-8b (after phase
+             10's check, impl "flash") and rwkv6-3b (after phase 16's
+             check, impl "auto") with their loaded parameters placed as
+             DTensors by ``param_shardings`` (fsdp, no copy), the cache by
+             ``cache_shardings``, the prompts by ``batch_sharding``;
+             ``generate`` (3 decode steps) under ``sharding_rules``: 36
+             flash_attention_sm90 and 32 ssm_scan_sm90 launches through
+             ``local_map``, no other kernel; the prefill's last-token
+             logits, every cache leaf and the tokens bit for bit against
+             the same calls unsharded; one training step of rwkv6-3b at
+             full width cut to 4 layers (4 x 2048), sharded and unsharded
+             from the same state and batch: loss, gradients and moments
+             bit for bit, 8 ssm_scan_sm90 launches; walls sharded beside
+             unsharded, peak memory; and the dry-run CLI for granite-8b
+             decode_32k on the single production mesh in a subprocess (a
+             fake world of 256 ranks cannot share a process with NCCL),
+             its JSON fields and H100 roofline terms printed.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -453,6 +472,11 @@ TRAIN_SMOKES = (("h2o-danube-1.8b", None), ("granite-8b", None),
 # after step 1 move by about lr x sign(g), which turns a gradient element
 # near zero into a whole step
 TRAIN_SMOKE_GRAD_REL = 1e-4
+# phase 30: the sharded paths on a one-rank mesh (the prefill's token and
+# 3 decode steps; rwkv6-3b's training step cut to 4 layers); the dry-run
+# cell run by the CLI
+SHARD_GEN, SHARD_TRAIN_LAYERS = 4, 4
+DRYRUN_CELL = ("granite-8b", "decode_32k", "single")
 
 
 def log(*a):
@@ -1660,50 +1684,93 @@ def new_model(device, arch, **cut):
     return cfg, params, prompts
 
 
+def zero_counts():
+    """Every kernel's launch counts to 0 (the main path's run starts)."""
+    from repro_torch.kernels import (flash_attention, pig_aggregate,
+                                     segfanin, ssm_scan)
+    for mod in (flash_attention, ssm_scan, segfanin, pig_aggregate):
+        mod.launches = 0
+    flash_attention.launches_sm90 = ssm_scan.launches_sm90 = 0
+
+
+def read_counts(kernel):
+    """(``kernel``'s sm90 launches, its launches, every other kernel's);
+    ``kernel`` a kernel module, or None (every kernel is another)."""
+    from repro_torch.kernels import (flash_attention, pig_aggregate,
+                                     segfanin, ssm_scan)
+    others = {m.__name__.rsplit(".", 1)[-1]: m.launches
+              for m in (flash_attention, ssm_scan, segfanin, pig_aggregate)
+              if m is not kernel}
+    if kernel is None:
+        return 0, 0, others
+    return kernel.launches_sm90, kernel.launches, others
+
+
+def full(t):
+    """A DTensor's whole value (a plain tensor as it is)."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def on_mesh(cache, prompts, mesh):
+    """(cache, prompts, context): placed on ``mesh`` with the sharding
+    layer's specs, and its rules' context; as they are, and a null
+    context, without a mesh."""
+    import contextlib
+    if mesh is None:
+        return cache, prompts, contextlib.nullcontext()
+    from repro_torch.shard import sharding_rules
+    from repro_torch.train import sharding as S
+    cache = S.place(cache, S.cache_shardings(cache, mesh, False), mesh)
+    x = S.distribute(prompts, mesh,
+                     S.batch_sharding({"t": prompts}, mesh, False)["t"])
+    return cache, x, sharding_rules(mesh, S.activation_rules(False))
+
+
 def run_generate(device, cfg, params, prompts, kernel, impl, want,
-                 gen=SERVE_GEN):
+                 gen=SERVE_GEN, mesh=None):
     """The main path of a serving slice: ``generate`` with ``impl`` from an
     empty cache, every kernel count set to 0 just before and read just
     after; the sm90 entry of ``kernel`` (a kernel module) must launch
-    ``want`` times (the prefill's) and no other kernel at all.  Returns
-    (its launches, the generated tokens)."""
+    ``want`` times (the prefill's) and no other kernel at all.  On
+    ``mesh`` (placed parameters) the cache and the prompts are placed too
+    and ``generate`` runs under the sharding rules.  Returns (its
+    launches, the generated tokens, {the cache, the wall s, the peak
+    bytes}), tokens and cache as placed."""
     import torch
-    from repro_torch.kernels import (flash_attention, pig_aggregate,
-                                     segfanin, ssm_scan)
     from repro_torch.launch.serve import generate
     from repro_torch.models import make_cache
-    mods = (flash_attention, ssm_scan, segfanin, pig_aggregate)
-    cache = make_cache(cfg, SERVE_B, SERVE_PROMPT + gen, device=device)
+    cache, x, ctx = on_mesh(
+        make_cache(cfg, SERVE_B, SERVE_PROMPT + gen, device=device), prompts,
+        mesh)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods:
-        mod.launches = 0
-    flash_attention.launches_sm90 = 0
-    ssm_scan.launches_sm90 = 0
-    out = generate(params, cfg, cache, tokens=prompts, gen=gen, impl=impl)
-    launches, sm90 = kernel.launches, kernel.launches_sm90
-    others = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods
-              if m is not kernel}
+    with ctx:
+        zero_counts()
+        t0 = time.perf_counter()
+        out = generate(params, cfg, cache, tokens=x, gen=gen, impl=impl)
+        wall = time.perf_counter() - t0
+        sm90, launches, others = read_counts(kernel)
+        tokens = full(out.tokens)
     name = kernel.__name__.rsplit(".", 1)[-1]
     peak = torch.cuda.max_memory_allocated()
     tok_s = SERVE_B * (gen - 1) / out.decode_s
-    log(f"serve    {cfg.name} prefill {SERVE_B}x{SERVE_PROMPT} tokens "
-        f"(cold): {1e3 * out.prefill_s:.3f} ms; decode {gen - 1} steps: "
-        f"{1e3 * out.decode_s:.3f} ms, "
+    where = "" if mesh is None else " (sharded, one-rank mesh)"
+    log(f"serve    {cfg.name}{where} prefill {SERVE_B}x{SERVE_PROMPT} "
+        f"tokens (cold): {1e3 * out.prefill_s:.3f} ms; decode {gen - 1} "
+        f"steps: {1e3 * out.decode_s:.3f} ms, "
         f"{1e3 * out.decode_s / (gen - 1):.3f} ms a step, {tok_s:.2f} "
         f"tokens/s; peak memory {peak} bytes ({peak / 2**30:.2f} GiB, "
         f"weights and cache included); {name} launches {launches} (sm90 "
         f"{sm90}), other kernels' launches {others}")
-    log(f"serve    first sequence: {out.tokens[0].tolist()}")
+    log(f"serve    first sequence: {tokens[0].tolist()}")
     if not launches == sm90 == want or any(others.values()):
-        raise SystemExit(f"{cfg.name}: {name} launches {launches} (sm90 "
-                         f"{sm90}), expected {want} of the sm90 kernel (the "
-                         f"prefill's), other kernels {others}")
-    if out.tokens.shape != (SERVE_B, gen) or not bool(
-            ((out.tokens >= 0) & (out.tokens < cfg.vocab)).all()):
-        raise SystemExit(f"generated tokens out of range: "
-                         f"{out.tokens.shape}")
-    return sm90, out.tokens
+        raise SystemExit(f"{cfg.name}{where}: {name} launches {launches} "
+                         f"(sm90 {sm90}), expected {want} of the sm90 kernel "
+                         f"(the prefill's), other kernels {others}")
+    if tokens.shape != (SERVE_B, gen) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()):
+        raise SystemExit(f"generated tokens out of range: {tokens.shape}")
+    return sm90, tokens, {"cache": cache, "wall": wall, "peak": peak}
 
 
 # --------------------------------------------------------------- phase 10
@@ -2783,9 +2850,9 @@ def run_moe_cut(device):
     cfg, params, prompts = new_model(device, MOE_CUT_ARCH,
                                      n_layers=MOE_CUT_LAYERS)
     with FlashInputs() as calls:
-        sm90, tokens = run_generate(device, cfg, params, prompts,
-                                    flash_attention, "flash", cfg.n_layers,
-                                    gen=MOE_CUT_STEPS + 1)
+        sm90, tokens, _ = run_generate(device, cfg, params, prompts,
+                                       flash_attention, "flash",
+                                       cfg.n_layers, gen=MOE_CUT_STEPS + 1)
     del params
     ratio, err = flash_on_inputs(
         f"{cfg.name} ({cfg.n_layers} layers) attention by layer", calls.calls)
@@ -2852,17 +2919,11 @@ def run_train(device, cfg, state, batches, kernel, want, first=None):
     step 1, outside the step's wall.  Returns (its launches, [(loss,
     grad_norm, lr, wall s)] a step, peak bytes)."""
     import torch
-    from repro_torch.kernels import (flash_attention, pig_aggregate,
-                                     segfanin, ssm_scan)
     from repro_torch.train import build_train_step
     step = build_train_step(cfg, train_options())
-    mods = (flash_attention, ssm_scan, segfanin, pig_aggregate)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in mods:
-        mod.launches = 0
-    flash_attention.launches_sm90 = 0
-    ssm_scan.launches_sm90 = 0
+    zero_counts()
     rows = []
     for batch in batches:
         t0 = time.perf_counter()
@@ -2872,10 +2933,7 @@ def run_train(device, cfg, state, batches, kernel, want, first=None):
                      time.perf_counter() - t0))
         if first is not None and len(rows) == 1:
             first(m["loss"], state)
-    launches = 0 if kernel is None else kernel.launches
-    sm90 = 0 if kernel is None else kernel.launches_sm90
-    others = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in mods
-              if m is not kernel}
+    sm90, launches, others = read_counts(kernel)
     peak = torch.cuda.max_memory_allocated()
     n = len(batches)
     log(f"train    {cfg.name} {n} steps of {TRAIN_B}x{TRAIN_S} tokens "
@@ -3248,6 +3306,208 @@ def train_smokes(device):
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -------------------------------------------------------------- phase 30
+class one_rank_mesh:
+    """A one-rank NCCL world through a ``FileStore`` under a temporary
+    directory (as ``run_sync``) and its (1, 1) ``("data", "model")``
+    ``DeviceMesh``; the group is destroyed on exit."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        import tempfile
+
+        import torch
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        from repro_torch.launch import mesh
+        self.tmp = tempfile.TemporaryDirectory()
+        mesh.init(0, 1, dist.FileStore(os.path.join(self.tmp.name, "store"),
+                                       1), device=self.device)
+        return DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                          mesh_dim_names=("data", "model"))
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+
+
+def unshard_params(params):
+    """Each DTensor parameter back to its local tensor (on one rank, the
+    whole tensor; no copy)."""
+    import torch
+    for mod in params.modules():
+        for k, p in list(mod._parameters.items()):
+            if p is not None and hasattr(p, "to_local"):
+                mod._parameters[k] = torch.nn.Parameter(
+                    p.to_local(), requires_grad=p.requires_grad)
+
+
+def last_logits(device, cfg, params, prompts, impl, mesh=None):
+    """The prefill's last-token logits from an empty cache (whole)."""
+    from repro_torch.models import make_cache, prefill
+    cache, x, ctx = on_mesh(
+        make_cache(cfg, SERVE_B, SERVE_PROMPT + SHARD_GEN, device=device),
+        prompts, mesh)
+    with ctx:
+        logits, _ = prefill(params, cfg, tokens=x, cache=cache, impl=impl)
+        return full(logits)
+
+
+def shard_serve(device, cfg, params, prompts, kernel, impl, want):
+    """Phase 30, serving: ``cfg`` through ``run_generate`` (``SHARD_GEN``
+    tokens) unsharded, then sharded on a one-rank mesh, from the same
+    loaded parameters and prompts; the kernel launches ``want`` times
+    through ``local_map`` and no other kernel (``run_generate`` checks
+    it); the prefill's last-token logits, every cache leaf and the tokens
+    bit for bit.  Returns the sharded path's launches."""
+    from repro_torch.train import sharding as S
+    lg0 = last_logits(device, cfg, params, prompts, impl)
+    _, tok0, run0 = run_generate(device, cfg, params, prompts, kernel, impl,
+                                 want, SHARD_GEN)
+    with one_rank_mesh(device) as mesh:
+        specs = S.param_shardings(params, mesh)
+        S.place_params(params, mesh, specs)
+        try:
+            lg = last_logits(device, cfg, params, prompts, impl, mesh)
+            sm90, tok, run = run_generate(device, cfg, params, prompts,
+                                          kernel, impl, want, SHARD_GEN, mesh)
+            cache = {g: {n: full(t) for n, t in leaves.items()}
+                     for g, leaves in run["cache"].items()}
+        finally:
+            unshard_params(params)
+    same = {"logits": same_bits(lg, lg0), "tokens": same_bits(tok, tok0)}
+    same.update({f"cache/{g}/{n}": same_bits(t, run0["cache"][g][n])
+                 for g, leaves in cache.items() for n, t in leaves.items()})
+    log(f"shard    {cfg.name} generate ({SERVE_B}x{SERVE_PROMPT} prompt, "
+        f"{SHARD_GEN - 1} decode steps, impl {impl}) on a one-rank mesh: "
+        f"wall {1e3 * run['wall']:.3f} ms sharded, "
+        f"{1e3 * run0['wall']:.3f} ms unsharded (DTensor dispatch on the "
+        f"host: x{run['wall'] / run0['wall']:.3f}); peak memory "
+        f"{run['peak']} bytes sharded, {run0['peak']} unsharded; "
+        f"{len(specs)} parameters placed, e.g. layers.0 {sorted(set(str(v) for k, v in specs.items() if k.startswith('layers.0.')))}")
+    log(f"shard    {cfg.name} sharded == unsharded bit for bit: {same}")
+    if not all(same.values()):
+        raise SystemExit(f"{cfg.name}: sharded and unsharded serving "
+                         f"differ: {same}")
+    return sm90
+
+
+def train_once(device, cfg, params, batch, mesh=None):
+    """``loss_and_grads`` and one counted ``build_train_step`` step from
+    ``params`` and zero moments, on ``mesh`` or unsharded.  Returns (loss,
+    grads, moments, step loss, step wall, counts, peak), whole tensors."""
+    import contextlib
+
+    import torch
+    from repro_torch.kernels import ssm_scan
+    from repro_torch.optim import OptState, adamw_init
+    from repro_torch.shard import sharding_rules
+    from repro_torch.train import (TrainState, build_train_step,
+                                   loss_and_grads)
+    from repro_torch.train import sharding as S
+    opt = adamw_init(params)
+    if mesh is not None:
+        specs = S.opt_shardings(opt, mesh)
+        opt = OptState(mu=S.place(opt.mu, specs["mu"], mesh),
+                       nu=S.place(opt.nu, specs["nu"], mesh), step=opt.step)
+        S.place_params(params, mesh, S.param_shardings(params, mesh))
+        bs = S.batch_sharding(batch, mesh, False)
+        batch = {n: S.distribute(t, mesh, bs[n]) for n, t in batch.items()}
+    ctx = (contextlib.nullcontext() if mesh is None
+           else sharding_rules(mesh, S.activation_rules(False)))
+    step = build_train_step(cfg, train_options())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with ctx:
+        loss, grads = loss_and_grads(params, cfg, batch, "auto", True)
+        grads = {n: full(g) for n, g in grads.items()}
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        state, m = step(TrainState(params, opt), batch)
+        step_loss = full(m["loss"]).cpu()
+        wall = time.perf_counter() - t0
+        counts = read_counts(ssm_scan)
+    moments = {f"{k}/{leaf}": full(t) for k in ("mu", "nu")
+               for leaf, t in getattr(state.opt, k).items()}
+    return (full(loss), grads, moments, step_loss, wall, counts,
+            torch.cuda.max_memory_allocated())
+
+
+def shard_train(device):
+    """Phase 30, training: rwkv6-3b at full width cut to
+    ``SHARD_TRAIN_LAYERS`` layers, one step sharded (one-rank mesh) and
+    unsharded from the same seeded state and batch: loss, gradients and
+    moments bit for bit; ssm_scan_sm90 twice a layer (the forward and
+    remat's recompute).  Returns the sharded step's launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    cfg = get_config(RWKV_ARCH).replace(n_layers=SHARD_TRAIN_LAYERS)
+    make = lambda: init_params(cfg, torch.Generator(device).manual_seed(0),
+                               device=device)
+    batch = train_batches(cfg, device, 1)[0]
+    ref = train_once(device, cfg, make(), batch)
+    torch.cuda.empty_cache()
+    with one_rank_mesh(device) as mesh:
+        got = train_once(device, cfg, make(), batch, mesh)
+    want = 2 * SHARD_TRAIN_LAYERS
+    same = {"loss": same_bits(got[0], ref[0]),
+            "step loss": same_bits(got[3], ref[3]),
+            "grads": all(same_bits(got[1][n], g) for n, g in ref[1].items()),
+            "moments": all(same_bits(got[2][n], t)
+                           for n, t in ref[2].items())}
+    log(f"shard    {cfg.name} ({SHARD_TRAIN_LAYERS} layers, {TRAIN_B}x"
+        f"{TRAIN_S} tokens) one step: loss {float(ref[0]):.6f}; wall "
+        f"{1e3 * got[4]:.3f} ms sharded, {1e3 * ref[4]:.3f} ms unsharded "
+        f"(x{got[4] / ref[4]:.3f}); peak memory {got[6]} bytes sharded, "
+        f"{ref[6]} unsharded; ssm_scan_sm90 launches sm90 / all "
+        f"{got[5][0]} / {got[5][1]} sharded ({ref[5][0]} / {ref[5][1]} "
+        f"unsharded), other kernels {got[5][2]}; sharded == unsharded bit "
+        f"for bit: {same}")
+    if not (got[5][0] == got[5][1] == want and not any(got[5][2].values())):
+        raise SystemExit(f"{cfg.name} sharded training: launches {got[5]}, "
+                         f"expected {want}")
+    if not all(same.values()):
+        raise SystemExit(f"{cfg.name}: sharded and unsharded training "
+                         f"differ: {same}")
+    return got[5][0]
+
+
+def shard_dryrun():
+    """Phase 30, the dry-run: the CLI for ``DRYRUN_CELL`` in a subprocess
+    (a fake world of 256 ranks on the meta device; it cannot share a
+    process with NCCL), its JSON fields and H100 roofline terms printed."""
+    import tempfile
+    arch, shape, mesh = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--arch", arch, "--shape", shape, "--mesh", mesh,
+                            "--out", d], env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        path = os.path.join(d, f"{mesh}--{arch}--{shape}.json")
+        if r.returncode != 0 or not os.path.exists(path):
+            raise SystemExit(f"dry-run failed ({r.returncode}):\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        with open(path) as f:
+            cell = json.load(f)
+    keep = ("chips", "hlo_flops", "hlo_bytes", "coll_bytes",
+            "coll_cross_pod", "model_flops", "t_compute", "t_memory",
+            "t_collective", "bottleneck", "useful_flops_ratio",
+            "roofline_fraction", "constants_values", "v5e", "collectives",
+            "memory", "lower_s", "n_ops")
+    log(f"dryrun   {mesh} {arch} {shape} in {wall:.2f} s (subprocess): "
+        f"{json.dumps({k: cell[k] for k in keep})}")
+    if "error" in cell or cell["chips"] != 256:
+        raise SystemExit(f"dry-run cell: {cell}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3292,12 +3552,15 @@ def main() -> int:
     flash_timing = phase("8 timing", time_flash, device)
     cfg, params, prompts = new_model(device, SERVE_ARCH)
     paths = {}
-    paths[cfg.name], served = phase("9 serve", run_generate, device, cfg,
-                                    params, prompts, flash_attention,
-                                    "flash", cfg.n_layers)
+    paths[cfg.name], served, _ = phase("9 serve", run_generate, device,
+                                       cfg, params, prompts, flash_attention,
+                                       "flash", cfg.n_layers)
     flash_err = max(flash_err, phase("10 check", check_serve, device, cfg,
                                      params, prompts, served,
                                      flash_timing["ms"]))
+    paths[f"{cfg.name} sharded serve"] = phase(
+        "30 granite", shard_serve, device, cfg, params, prompts,
+        flash_attention, "flash", cfg.n_layers)
     phase("10 smoke", check_smoke, device, get_smoke_config(SERVE_ARCH),
           flash_attention, "flash", SMOKE_LOGIT_TOL)
     del cfg, params, prompts, served
@@ -3311,11 +3574,17 @@ def main() -> int:
     ssm_err = phase("14 ssm", check_ssm, device)
     ssm_timing = phase("15 timing", time_ssm, device)
     cfg, params, prompts = rwkv_inputs(device)
-    ssm_launches, served = phase("16 serve", run_generate, device, cfg,
-                                 params, prompts, ssm_scan, "auto",
-                                 cfg.n_layers)
+    ssm_launches, served, _ = phase("16 serve", run_generate, device, cfg,
+                                    params, prompts, ssm_scan, "auto",
+                                    cfg.n_layers)
     phase("16 check", check_rwkv_serve, device, cfg, params, prompts, served,
           ssm_timing["ms"])
+    ssm_shard = {"rwkv6-3b sharded serve": phase(
+        "30 rwkv", shard_serve, device, cfg, params, prompts, ssm_scan,
+        "auto", cfg.n_layers)}
+    ssm_shard["rwkv6-3b sharded train"] = phase("30 train", shard_train,
+                                                device)
+    phase("30 dryrun", shard_dryrun)
     phase("16 smoke", check_smoke, device, get_smoke_config(RWKV_ARCH),
           ssm_scan, "auto", RWKV_SMOKE_LOGIT_TOL)
     del cfg, params, prompts, served
@@ -3323,9 +3592,9 @@ def main() -> int:
 
     from repro_torch.models.model import n_super
     cfg, params, prompts = phase("24 hybrid", new_model, device, HYBRID_ARCH)
-    paths[cfg.name], served = phase("24 serve", run_generate, device, cfg,
-                                    params, prompts, flash_attention, "flash",
-                                    n_super(cfg))
+    paths[cfg.name], served, _ = phase("24 serve", run_generate, device,
+                                       cfg, params, prompts, flash_attention,
+                                       "flash", n_super(cfg))
     flash_err = max(flash_err, phase(
         "25 hcheck", check_hybrid, device, cfg, params, prompts, served,
         flash_timing["zamba2_timing"]["ms"]))
@@ -3334,9 +3603,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg, params, prompts = phase("26 moe", new_model, device, MOE_ARCH)
-    paths[cfg.name], served = phase("26 serve", run_generate, device, cfg,
-                                    params, prompts, flash_attention, "flash",
-                                    cfg.n_layers)
+    paths[cfg.name], served, _ = phase("26 serve", run_generate, device,
+                                       cfg, params, prompts, flash_attention,
+                                       "flash", cfg.n_layers)
     flash_err = max(flash_err, phase("26 check", check_moe, device, cfg,
                                      params, prompts, served))
     del cfg, params, prompts, served
@@ -3348,14 +3617,14 @@ def main() -> int:
     phase("26 smoke", check_moe_smoke, device)
     torch.cuda.empty_cache()
 
-    ssm_paths = {"rwkv6-3b serve": ssm_launches}
+    ssm_paths = {"rwkv6-3b serve": ssm_launches, **ssm_shard}
     ssm_paths["rwkv6-3b train"] = phase("27 train", train_rwkv, device,
                                         ssm_timing["ms"])
     torch.cuda.empty_cache()
     phase("28 train", train_dense, device)
     torch.cuda.empty_cache()
     phase("29 smokes", train_smokes, device)
-    log(f"wall     phases 2-29 together: {sum(walls.values()):.2f} s")
+    log(f"wall     phases 2-30 together: {sum(walls.values()):.2f} s")
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",

@@ -112,7 +112,9 @@ class CheckpointManager:
         """Restore step ``step`` (default: ``latest_step``) into ``like``, a
         port ``TrainState`` of the same config, in place (each leaf cast to
         ``like``'s dtype, on its device).  Returns (like, step), or None if
-        there is no checkpoint."""
+        there is no checkpoint.  A save still being written by this
+        manager's thread is waited for first."""
+        self.wait()
         step = self.latest_step() if step is None else step
         if step is None:
             return None

@@ -5,18 +5,31 @@ the hand-written kernel.  There is no fallback between the two.  With
 grad enabled and an input that requires grad, ``ssm_scan`` on the card
 goes through ``autograd.ssm_scan`` (the kernel forward, the plain
 version's gradient) and ``flash_attention`` on the card raises (no
-backward; see ``autograd``)."""
+backward; see ``autograd``).
+
+DTensors (a sharded model, ``shard.sharding_rules``): ``flash_attention``
+runs the kernel (on the CPU or the meta device, its plain version) on each
+rank's local shard through ``local_map``, split over batch and heads
+only, and so does ``ssm_scan`` on the card: neither kernel can run on a
+shard of a dimension it sums over (keys and head dim; the scan's Dk), so
+the inputs are first redistributed to that layout.  On the CPU or the
+meta device ``ssm_scan`` keeps the reference's split of Dk over 'model'
+(``ssm.chunked_linear_scan``).
+``pig_aggregate`` and the fan-ins are on no sharded path: a DTensor there
+raises a ``ValueError``."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
 
+from .. import shard
 from . import autograd
 from . import ssm_scan as _ssm_scan
 from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
+from .ref import flash_attention_ref, ssm_scan_ref
 from .segfanin import FaninGroups, seg_fanin_rows
 
 
@@ -32,9 +45,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (``flash_attention.flash_attention_padded``).  A CPU tensor runs the
     plain version, which takes any Dh.  On a CUDA tensor that requires
     grad, with grad enabled, it raises a ``ValueError``
-    (``autograd.FLASH_NO_GRAD``)."""
+    (``autograd.FLASH_NO_GRAD``).  DTensors: per shard of batch and query
+    heads (``shard.local_heads``: GQA's KV heads follow their query
+    heads)."""
+    if shard.is_dtensor(q):
+        return shard.local_heads(
+            lambda q, k, v: flash_attention(q, k, v, causal=causal), q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bshd(q, k, v, causal=causal)
+    if q.device.type == "meta":          # a dry-run's trace: no data
+        t = lambda a: a.transpose(1, 2)
+        return t(flash_attention_ref(t(q), t(k), t(v), causal=causal))
     if _needs_grad(q, k, v):
         raise ValueError(autograd.FLASH_NO_GRAD)
     return flash_attention_padded(q, k, v, causal=causal)
@@ -69,7 +90,18 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Gradients: on a CUDA tensor, with grad enabled and any input that
     requires grad, the call goes through ``autograd.ssm_scan`` after the
     casts above: the kernel's output forward, the plain version's exact
-    gradient backward (the JAX package differentiates its plain scan)."""
+    gradient backward (the JAX package differentiates its plain scan).
+
+    DTensors: on the card, the kernel per shard of batch and heads
+    (``_ssm_scan_local``); on the CPU or the meta device, the plain version
+    on the mesh as the reference runs it (``ssm.chunked_linear_scan``:
+    split over Dk on 'model', so that a dry-run counts the reference's
+    program)."""
+    if shard.is_dtensor(q) and q.device.type == "cuda":
+        return _ssm_scan_local(q, k, v, log_a, u, chunk, s0, return_state)
+    if shard.is_dtensor(q) or q.device.type == "meta":
+        return ssm_scan_ref(q, k, v, log_a, u=u, chunk=chunk, s0=s0,
+                            return_state=return_state)
     f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
     args = (q.contiguous(), k.contiguous(), v.contiguous(), f32(log_a))
     kw = dict(u=f32(u), chunk=chunk, s0=f32(s0), return_state=return_state)
@@ -78,9 +110,46 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _ssm_scan.ssm_scan(*args, **kw)
 
 
+def _ssm_scan_local(q, k, v, log_a, u, chunk, s0, return_state):
+    """``ssm_scan`` on each rank's shard through ``local_map``: q's splits
+    of batch (dim 0) and heads (dim 2) are kept, every other mesh dimension
+    is replicated (the chunk's sums run over T and Dk), and the state and
+    ``u`` follow the same splits."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+            for p in q.placements]
+    H = q.shape[2]
+    hs = 1
+    for i, p in enumerate(keep):
+        if p == Shard(2):
+            hs *= mesh.size(i)
+    if H % hs:
+        keep = [Replicate() if p == Shard(2) else p for p in keep]
+    moved = lambda to: [Shard(to[p.dim]) if isinstance(p, Shard)
+                        and to.get(p.dim) is not None else Replicate()
+                        for p in keep]
+    x_pl = list(keep)
+    u_pl = moved({0: None, 2: 0})                  # (H, Dk)
+    s_pl = moved({0: 0, 2: 1})                     # (B, H, Dk, Dv)
+    run = lambda q, k, v, a, u, s0: ssm_scan(
+        q, k, v, a, u=u, chunk=chunk, s0=s0, return_state=return_state)
+    out = (x_pl, s_pl) if return_state else x_pl
+    return shard.local_call(run, mesh, out, (
+        x_pl, x_pl, x_pl, x_pl, None if u is None else u_pl,
+        None if s0 is None else s_pl), (q, k, v, log_a, u, s0))
+
+
+def _no_dtensor(name: str, *ts) -> None:
+    if any(shard.is_dtensor(t) for t in ts):
+        raise ValueError(f"{name} is on no sharded path: pass local "
+                         f"tensors, not DTensors")
+
+
 def pig_aggregate(shards: torch.Tensor, scales: torch.Tensor,
                   block: int = 1024) -> torch.Tensor:
     """shards (G, N) int8 + scales (G, N//block) f32 -> (N,) f32 sum."""
+    _no_dtensor("pig_aggregate", shards, scales)
     return _pig_aggregate_kernel(shards, scales, block=block)
 
 
@@ -93,6 +162,7 @@ def seg_fanin(vals: torch.Tensor, coef: torch.Tensor, segid: torch.Tensor,
     vcoef/md1/c scalars or (...,) per cell; anchor (..., B).  Returns
     (..., B, F): each slot's capped segment max, -inf where the admissible
     set is empty."""
+    _no_dtensor("seg_fanin", vals, coef, segid, kcap, anchor)
     f32 = torch.float32
     lead = vals.shape[:-2]
     B, F = vals.shape[-2:]
@@ -128,4 +198,5 @@ def seg_fanin_groups(grp: torch.Tensor, gstart: torch.Tensor,
     slot clamp(gstart, 0, F - 1): on the card one launch of
     ``csrc/seg_fanin_sm90.cu``, on the CPU (or with ``plain``) the plain
     version ``ref.seg_fanin_groups_ref``."""
+    _no_dtensor("seg_fanin_groups", grp, gstart, sizes, kg)
     return FaninGroups(grp, gstart, sizes, kg, B, plain=plain)

@@ -8,6 +8,11 @@ stand in for the axis names: ``Mesh.group`` is this rank's pod (the
 ``pod`` axis, group rank = pod) and ``Mesh.world`` both axes at once.  The
 reference's ``model`` axis is replicated in the schedules and drops out;
 tensor-parallel axes belong to the sharding layer, not here.
+
+The sharding layer's production mesh (``make_production_mesh``) is a
+named ``DeviceMesh`` over whatever world is initialised: a FUNCTION, not a
+module constant, so importing this module touches no device or process
+group state.
 """
 from __future__ import annotations
 
@@ -65,3 +70,27 @@ def make_mesh(npods: int, group_size: int,
             for e in range(group_size)]
     return Mesh(npods=npods, G=group_size, group=groups[p], pod=pods[d],
                 world=everyone)
+
+
+def mesh_axes(multi_pod: bool) -> tuple:
+    return ("pod", "data", "model") if multi_pod else ("data", "model")
+
+
+def chips(multi_pod: bool) -> int:
+    return 512 if multi_pod else 256
+
+
+def make_production_mesh(multi_pod: bool = False):
+    """Single pod: 16x16 = 256 ranks (data, model).  Multi-pod: 2x16x16 =
+    512 ranks (pod, data, model).  A ``DeviceMesh`` over the initialised
+    world, whose size must be ``chips(multi_pod)``.  Its device type is
+    the CPU: the dry-run, its one caller, traces on the meta device over a
+    fake world in one process (``launch.dryrun``)."""
+    from torch.distributed.device_mesh import DeviceMesh
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    n = chips(multi_pod)
+    if dist.get_world_size() != n:
+        raise ValueError(f"a {shape} mesh needs a world of {n} ranks, not "
+                         f"{dist.get_world_size()}")
+    return DeviceMesh("cpu", torch.arange(n).reshape(shape),
+                      mesh_dim_names=mesh_axes(multi_pod))

@@ -6,8 +6,8 @@ by name and shape):
   wq: (d_model, n_heads*dh)    wk/wv: (d_model, n_kv*dh)   wo: (n_heads*dh, d_model)
   w1/w3: (d_model, d_ff)       w2: (d_ff, d_model)
 Activations are x @ w, as in JAX (not ``nn.Linear``'s transposed layout).
-The JAX package's sharding constraints are no-ops outside a mesh and are
-left out here.
+The JAX package's sharding constraints stand at the same sites
+(``shard.constrain``): no-ops outside a rules context.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..shard import (constrain, flatten, is_dtensor, is_split, local_call,
+                     local_heads, sum_over, unflatten, write_slots)
 from .config import ModelConfig
 
 NEG_INF = -1e30
@@ -65,17 +67,22 @@ def _attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_pos: torch.Tensor, k_pos: torch.Tensor,
                   window: Optional[int] = None,
-                  k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  k_valid: Optional[torch.Tensor] = None,
+                  dh: Optional[int] = None, dh_sum=None) -> torch.Tensor:
     """Reference GQA attention.  q: (B,Sq,Hq,Dh), k/v: (B,Sk,Hkv,Dh).
-    q_pos: (B,Sq) absolute positions; k_pos: (B,Sk).  O(Sq*Sk) memory."""
+    q_pos: (B,Sq) absolute positions; k_pos: (B,Sk).  O(Sq*Sk) memory.
+    On a rank's slice of the head dim (``_decode_attention``): ``dh`` is
+    the whole head dim and ``dh_sum`` completes the logits' sum over it."""
     B, Sq, Hq, Dh = q.shape
     Hkv = k.shape[2]
     rep = Hq // Hkv
-    qf = q.float() / math.sqrt(Dh)
+    qf = q.float() / math.sqrt(Dh if dh is None else dh)
     kf = k.float()
     vf = v.float()
-    qf = qf.reshape(B, Sq, Hkv, rep, Dh)
+    qf = unflatten(qf, 2, (Hkv, rep))
     logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, kf)
+    if dh_sum is not None:
+        logits = dh_sum(logits)
     mask = _attn_mask(q_pos, k_pos, window)[:, None, None]   # (B,1,1,Sq,Sk)
     if k_valid is not None:
         mask = mask & k_valid[:, None, None, None, :]
@@ -105,7 +112,7 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if k_valid is not None:
             k_valid = F.pad(k_valid, (0, pad))
         Sk += pad
-    qf = (q.float() / math.sqrt(Dh)).reshape(B, Sq, Hkv, rep, Dh)
+    qf = unflatten(q.float() / math.sqrt(Dh), 2, (Hkv, rep))
     dev = q.device
     m = torch.full((B, Hkv, rep, Sq), NEG_INF, device=dev)
     l = torch.zeros((B, Hkv, rep, Sq), device=dev)
@@ -134,6 +141,30 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+def _decode_attention(q, ck, cv, positions, cpos, window):
+    """Attention of a decode step over the cache.  On a mesh the cache is
+    not moved: q takes the cache's splits of batch, KV heads (GQA's query
+    heads follow them in contiguous blocks) and head dim, each rank
+    attends over its slice, and a head-dim split sums the logits over its
+    ranks (``shard.sum_over``).  Where the cache's keys themselves are
+    split (a long context's sequence), DTensor's own operations run,
+    softmax over the split key axis included."""
+    plain = lambda q, k, v, qp, kp, **kw: attention_ref(
+        q, k, v, qp, kp, window=window, k_valid=kp >= 0, **kw)
+    if not is_dtensor(ck) or is_split(ck, 1):
+        return plain(q, ck, cv, positions, cpos)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, pl = ck.device_mesh, list(ck.placements)
+    qpl = [p if isinstance(p, Shard) and p.dim in (0, 2, 3) else Replicate()
+           for p in pl]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    split = [mesh.get_group(i) for i, p in enumerate(pl) if p == Shard(3)]
+    kw = (dict(dh=q.shape[-1], dh_sum=lambda t: sum_over(t, split))
+          if split else {})
+    return local_call(lambda *a: plain(*a, **kw), mesh, qpl,
+                      (qpl, pl, pl, rows, rows), (q, ck, cv, positions, cpos))
+
+
 def _act(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh")}[name]
@@ -142,6 +173,7 @@ def _act(name: str):
 def gated_mlp(p: "GatedMLP", x: torch.Tensor, act: str = "silu"
               ) -> torch.Tensor:
     h = _act(act)(x @ p.w1) * (x @ p.w3)
+    h = constrain(h, "batch", "seq", "ff")
     return h @ p.w2
 
 
@@ -215,27 +247,32 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     """
     B, S, D = x.shape
     dh = cfg.dh
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, dh)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, dh)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, dh)
+    q = unflatten(x @ p.wq, -1, (cfg.n_heads, dh))
+    k = unflatten(x @ p.wk, -1, (cfg.n_kv_heads, dh))
+    v = unflatten(x @ p.wv, -1, (cfg.n_kv_heads, dh))
     if cfg.qkv_bias:
-        q = q + p.bq.reshape(cfg.n_heads, dh)
-        k = k + p.bk.reshape(cfg.n_kv_heads, dh)
-        v = v + p.bv.reshape(cfg.n_kv_heads, dh)
+        q = q + unflatten(p.bq, 0, (cfg.n_heads, dh))
+        k = k + unflatten(p.bk, 0, (cfg.n_kv_heads, dh))
+        v = v + unflatten(p.bv, 0, (cfg.n_kv_heads, dh))
+    q = constrain(q, "batch", "seq", "heads", None)
+    k = constrain(k, "batch", "seq", "kv_heads", None)
     cos, sin = rope_tables(positions, dh, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
+    win = cfg.sliding_window
+
     def _uncached_attention():
-        if impl == "flash" and cfg.sliding_window is None:
+        if impl == "flash" and win is None:
             from ..kernels.ops import flash_attention
             return flash_attention(q, k, v, causal=True)
-        if impl == "chunked" or (impl in ("ref", "auto") and S > 1024):
-            # linear-memory path: required at 4k+ sequence lengths
-            return attention_chunked(q, k, v, positions, positions,
-                                     window=cfg.sliding_window)
-        return attention_ref(q, k, v, positions, positions,
-                             window=cfg.sliding_window)
+        # linear-memory path: required at 4k+ sequence lengths
+        core = (attention_chunked if impl == "chunked"
+                or (impl in ("ref", "auto") and S > 1024) else attention_ref)
+        # on a mesh: per shard of batch and query heads (shard.local_heads)
+        return local_heads(lambda q, k, v, pos: core(q, k, v, pos, pos,
+                                                     window=win),
+                           q, k, v, positions)
 
     if cache is None:
         y = _uncached_attention()
@@ -243,22 +280,20 @@ def attention_block(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         W = ck.shape[1]
         # ring-buffer slots (full cache: W >= max_len so slot == position)
-        slots = (positions % W).long()
-        bidx = torch.arange(B, device=x.device)[:, None]
-        ck.index_put_((bidx, slots), k.to(ck.dtype))
-        cv.index_put_((bidx, slots), v.to(cv.dtype))
-        cpos.index_put_((bidx, slots), positions.to(cpos.dtype))
+        slots = positions % W
+        write_slots(ck, slots, k)
+        write_slots(cv, slots, v)
+        write_slots(cpos, slots, positions)
         if S > 1:
             # prefill: attention over the freshly written sequence itself
             # (prefill starts from an empty cache, so causal attention over
             # the current chunk == attention over the cache)
             y = _uncached_attention()
         else:
-            y = attention_ref(q, ck, cv, positions, cpos,
-                              window=cfg.sliding_window, k_valid=cpos >= 0)
+            y = _decode_attention(q, ck, cv, positions, cpos, win)
 
-    y = y.reshape(B, S, cfg.q_dim) @ p.wo
-    return y, cache
+    y = flatten(y, 2, 2) @ p.wo
+    return constrain(y, "batch", "seq", "embed"), cache
 
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig,

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..shard import (constrain, fsdp_gather, gathered, is_dtensor, is_split,
+                     local_call, shard_index, sum_over)
 from .config import ModelConfig
 from .layers import (Attention, GatedMLP, attention_block, empty_kv_cache,
                      gated_mlp, generator_device, init_attention, init_mlp,
@@ -250,19 +252,33 @@ def _ssm_layer(lp: SSMLayer, x, cfg: ModelConfig, cache, chunk=64):
 
 def _shared_attn_block(sp: SharedAttnBlock, x, cfg: ModelConfig, positions,
                        cache, impl):
+    sp = gathered(sp)
     h, nc = attention_block(sp.attn, rmsnorm(x, sp.ln1, cfg.norm_eps),
                             cfg, positions, cache, impl)
     x = x + h
     x = x + gated_mlp(sp.mlp, rmsnorm(x, sp.ln2, cfg.norm_eps), cfg.mlp_act)
-    return x, nc
+    return _carry(x), nc
 
 
 def _block(lp, x, cfg: ModelConfig, positions, cache, impl):
+    lp = gathered(lp)                   # on a mesh: FSDP-gathered weights
     if cfg.family == "rwkv":
-        return rwkv_block(lp, x, cfg, cache=cache, impl=impl)
-    if cfg.family in ("ssm", "hybrid"):
-        return _ssm_layer(lp, x, cfg, cache)
-    return _dense_block(lp, x, cfg, positions, cache, impl)
+        x, nc = rwkv_block(lp, x, cfg, cache=cache, impl=impl)
+    elif cfg.family in ("ssm", "hybrid"):
+        x, nc = _ssm_layer(lp, x, cfg, cache)
+    else:
+        x, nc = _dense_block(lp, x, cfg, positions, cache, impl)
+    return _carry(x), nc
+
+
+def _carry(x):
+    """The residual stream between blocks, laid out as the JAX package's
+    layer scan keeps its carry: GSPMD gives a loop carry one layout, so a
+    block's partial sums (the out-projections' products over a split
+    'model' dim) are reduced at the layer boundary.  Without this DTensor
+    carries them as ``Partial`` into the next block, whose products then
+    run on whole weights on every 'model' rank.  A no-op off a mesh."""
+    return constrain(x, "batch", "seq", "embed")
 
 
 def _layers(params: DenseModel, cfg: ModelConfig, x, positions,
@@ -286,9 +302,32 @@ def _layers(params: DenseModel, cfg: ModelConfig, x, positions,
 
 
 def _embed(params: DenseModel, tokens=None, embeds=None):
+    """The token embedding.  On a mesh the table is gathered over its FSDP
+    axis and stays split over the vocab: each rank looks up the tokens its
+    block holds (zeros elsewhere) and the blocks are summed (DTensor's own
+    lookup rule cannot be differentiated here)."""
     if embeds is not None:
         return embeds
-    return F.embedding(tokens, params.embed)
+    table = constrain(params.embed, "vocab", "embed")
+    if not is_split(table, 0):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = table.device_mesh
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    rows = [Replicate()] * mesh.ndim
+    if is_dtensor(tokens):                # keep the tokens' batch split
+        rows = [Shard(0) if p == Shard(0) and i not in vocab else
+                Replicate() for i, p in enumerate(tokens.placements)]
+
+    def run(tab, t):
+        rel = t - shard_index(mesh, vocab) * tab.shape[0]
+        hit = (rel >= 0) & (rel < tab.shape[0])
+        x = F.embedding(rel.clamp(0, tab.shape[0] - 1), tab)
+        return sum_over(torch.where(hit[..., None], x, 0.0),
+                        [mesh.get_group(i) for i in vocab])
+
+    return local_call(run, mesh, rows, (list(table.placements), rows),
+                      (table, tokens))
 
 
 # ================================================================== forward
@@ -326,6 +365,7 @@ def forward_hidden(params: DenseModel, cfg: ModelConfig, tokens=None,
     the results are bit-identical either way."""
     x = _embed(params, tokens, embeds)
     B, S = x.shape[:2]
+    x = constrain(x, "batch", "seq", "embed")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
@@ -337,8 +377,10 @@ def forward_hidden(params: DenseModel, cfg: ModelConfig, tokens=None,
 def logits_from_hidden(params: DenseModel, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params.embed.T
-    return x @ params.head
+        logits = x @ fsdp_gather(params.embed).T
+    else:
+        logits = x @ fsdp_gather(params.head)
+    return constrain(logits, "batch", "seq", "vocab")
 
 
 def forward(params, cfg, tokens=None, embeds=None, positions=None,
@@ -364,10 +406,38 @@ def lm_loss(params: DenseModel, cfg: ModelConfig, batch: dict,
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      torch.clamp_min(labels, 0).long()[..., None])[..., 0]
+    ll = _label_logits(logits, torch.clamp_min(labels, 0).long())
     nll = (lse - ll) * mask
     return torch.sum(nll) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def _gather_last(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.gather(logits, -1, labels[..., None])[..., 0]
+
+
+def _label_logits(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """logits[b, s, labels[b, s]].  On a mesh with the vocab split, each
+    rank reads the labels its block holds (0 elsewhere) and the blocks are
+    summed (DTensor has no gather along a split dimension)."""
+    if not is_split(logits, 2):
+        return _gather_last(logits, labels)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = logits.device_mesh
+    keep = [p if p in (Shard(0), Shard(2)) else Replicate()
+            for p in logits.placements]
+    vocab = [i for i, p in enumerate(keep) if p == Shard(2)]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in keep]
+
+    def run(lg, lab):
+        off = shard_index(mesh, vocab) * lg.shape[-1]
+        rel = lab - off
+        hit = (rel >= 0) & (rel < lg.shape[-1])
+        got = _gather_last(lg, rel.clamp(0, lg.shape[-1] - 1))
+        return sum_over(torch.where(hit, got, 0.0),
+                        [mesh.get_group(i) for i in vocab])
+
+    return local_call(run, mesh, rows, (keep, rows), (logits, labels))
 
 
 # ================================================================== serving
@@ -404,6 +474,7 @@ def prefill(params: DenseModel, cfg: ModelConfig, tokens=None, embeds=None,
         cache = make_cache(cfg, B, max_len=S, device=x.device)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    x = constrain(x, "batch", "seq", "embed")
     x = _layers(params, cfg, x, positions, cache, impl)
     x = rmsnorm(x[:, -1:], params.final_norm, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x)[:, 0], cache
@@ -414,7 +485,8 @@ def decode_step(params: DenseModel, cfg: ModelConfig, cache: dict,
                 tokens: torch.Tensor, pos: torch.Tensor, impl: str = "ref"):
     """One decode step.  tokens: (B,) int; pos: (B,) absolute positions.
     Returns (logits (B,V), cache)."""
-    x = F.embedding(tokens[:, None], params.embed)
+    x = _embed(params, tokens[:, None])
+    x = constrain(x, "batch", "seq", "embed")
     x = _layers(params, cfg, x, pos[:, None], cache, impl)
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
     return logits_from_hidden(params, cfg, x)[:, 0], cache

@@ -7,8 +7,11 @@ pair its position in its expert's queue; pairs past the capacity C go to
 a trash slot E*C that is never read.  Only int index buffers are
 scattered; the D-wide rows move by gathers.  The expert products are
 batched ``torch.einsum``s in the activations' type.  The JAX package's
-sharding constraints and remat name are no-ops on one device and are left
-out.
+sharding constraints stand at the same sites (``shard.constrain``); its
+remat name is left out.  On a mesh the dispatch indices and the two row
+gathers, which DTensor has no sharding rule for, run per batch shard
+(``shard.local_over``): a sequence is a token group, so each is
+independent per row.
 
 Parameters live in an ``MoE`` module named as the JAX dict's keys
 (``router`` in f32, ``w1``, ``w3``, ``w2``, ``shared``).
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..shard import constrain, local_over
 from .config import ModelConfig
 from .layers import (GatedMLP, _act, _normal, _param, gated_mlp,
                      generator_device, init_mlp, target_device)
@@ -79,6 +83,38 @@ def route(p: MoE, x: torch.Tensor, k: int) -> tuple:
     return gates, topv, topi
 
 
+def _dispatch(topi: torch.Tensor, E: int, C: int) -> tuple:
+    """topi (B, S, k) -> (slot, keep, buf_idx (B, E*C + 1)): each kept
+    pair writes its token index into its slot; dropped pairs all write the
+    trash column E*C (any of them may win: it is never read); an empty
+    slot keeps S, the zero row appended to x."""
+    B, S, k = topi.shape
+    slot, keep = _group_dispatch_indices(topi, E, C)       # (B,S,k)
+    tok = torch.arange(S, device=topi.device)[None, :, None].expand(B, S, k)
+    bidx = torch.arange(B, device=topi.device)[:, None, None].expand(B, S, k)
+    buf_idx = torch.full((B, E * C + 1), S, dtype=torch.long,
+                         device=topi.device)
+    buf_idx.index_put_((bidx.reshape(B, -1), slot.reshape(B, -1)),
+                       tok.reshape(B, -1))
+    return slot, keep, buf_idx
+
+
+def _gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """src (B, R, D), idx (B, N) -> (B, N, D): src[b, idx[b, n]]."""
+    B, N = idx.shape
+    return torch.gather(src, 1, idx[..., None].expand(B, N, src.shape[-1]))
+
+
+def _experts(ex_in, w1, w3, w2, cfg: ModelConfig) -> torch.Tensor:
+    """The expert products, (B, E, C, D) -> (B, E, C, D); on a mesh, per
+    shard of batch and experts (DTensor's einsum cannot split the batched
+    products' operands here)."""
+    h = _act(cfg.mlp_act)(torch.einsum("becd,edf->becf", ex_in, w1))
+    h = h * torch.einsum("becd,edf->becf", ex_in, w3)
+    h = constrain(h, "batch", "experts", None, None)
+    return torch.einsum("becf,efd->becd", h, w2)
+
+
 def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D).  Each sequence is a token group with C =
     ``capacity(cfg, S)`` slots an expert."""
@@ -86,29 +122,27 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
     _, topv, topi = route(p, x, k)
-    slot, keep = _group_dispatch_indices(topi, E, C)       # (B,S,k)
-
-    # each kept pair writes its token index into its slot; dropped pairs
-    # all write the trash column E*C (any of them may win: it is never
-    # read); an empty slot keeps S, the zero row appended to x
-    tok = torch.arange(S, device=x.device)[None, :, None].expand(B, S, k)
-    bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, S, k)
-    buf_idx = torch.full((B, E * C + 1), S, dtype=torch.long,
-                         device=x.device)
-    buf_idx.index_put_((bidx.reshape(B, -1), slot.reshape(B, -1)),
-                       tok.reshape(B, -1))
+    rows3, rows2 = ("batch", None, None), ("batch", None)
+    ex4 = ("batch", "experts", None, None)
+    slot, keep, buf_idx = local_over(
+        lambda t: _dispatch(t, E, C), (topi,), (rows3,),
+        (rows3, rows3, rows2))
+    buf_idx = constrain(buf_idx, "batch", None)
     x_pad = torch.cat([x, x.new_zeros((B, 1, D))], dim=1)
-    ex_in = torch.gather(x_pad, 1, buf_idx[:, :E * C, None].expand(
-        B, E * C, D)).reshape(B, E, C, D)
+    ex_in = local_over(_gather_rows, (x_pad, buf_idx[:, :E * C]),
+                       (rows3, rows2), rows3).reshape(B, E, C, D)
+    ex_in = constrain(ex_in, "batch", "experts", None, None)   # a2a -> EP
 
-    h = _act(cfg.mlp_act)(torch.einsum("becd,edf->becf", ex_in, p.w1))
-    h = h * torch.einsum("becd,edf->becf", ex_in, p.w3)
-    ex_out = torch.einsum("becf,efd->becd", h, p.w2)
+    ex_out = local_over(lambda x, w1, w3, w2: _experts(x, w1, w3, w2, cfg),
+                        (ex_in, p.w1, p.w3, p.w2),
+                        (ex4,) + (("experts", None, None),) * 3, ex4)
+    ex_out = constrain(ex_out, "batch", "experts", None, None)
 
     flat_out = torch.cat([ex_out.reshape(B, E * C, D),
                           ex_out.new_zeros((B, 1, D))], dim=1)  # trash: 0
-    y = torch.gather(flat_out, 1, slot.reshape(B, S * k, 1).expand(
-        B, S * k, D)).reshape(B, S, k, D)
+    flat_out = constrain(flat_out, "batch", None, None)
+    y = local_over(_gather_rows, (flat_out, slot.reshape(B, S * k)),
+                   (rows3, rows2), rows3).reshape(B, S, k, D)
     w = (topv * keep).to(y.dtype)
     y = torch.einsum("bskd,bsk->bsd", y, w)
     if cfg.n_shared_experts:

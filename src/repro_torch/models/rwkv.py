@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..shard import constrain, flatten, unflatten
 from .config import ModelConfig
 from .layers import _normal, _param, generator_device, rmsnorm, target_device
 from .ssm import linear_scan_step
@@ -113,11 +114,11 @@ def time_mix(p: TimeMix, x: torch.Tensor, cfg: ModelConfig,
     def mix(mu):
         return x + (xx - x) * mu.to(x.dtype)
 
-    r = (mix(p.mu_r) @ p.wr).reshape(B, T, H, N)
-    k = (mix(p.mu_k) @ p.wk).reshape(B, T, H, N)
-    v = (mix(p.mu_v) @ p.wv).reshape(B, T, H, N)
+    r = unflatten(mix(p.mu_r) @ p.wr, -1, (H, N))
+    k = unflatten(mix(p.mu_k) @ p.wk, -1, (H, N))
+    v = unflatten(mix(p.mu_v) @ p.wv, -1, (H, N))
     g = F.silu(mix(p.mu_g) @ p.wg)
-    logw = log_decay(p, mix(p.mu_w)).reshape(B, T, H, N)
+    logw = unflatten(log_decay(p, mix(p.mu_w)), -1, (H, N))
 
     if cache is None or T > 1:
         s0 = None if cache is None else cache["state"]
@@ -131,13 +132,14 @@ def time_mix(p: TimeMix, x: torch.Tensor, cfg: ModelConfig,
                                      v[:, 0], logw[:, 0], bonus=p.u)
         y = y1[:, None]
     # per-head norm (GroupNorm stand-in), gate, output projection
-    y = rmsnorm(y.reshape(B, T, H, N), p.ln_x.reshape(H, N), cfg.norm_eps)
-    y = y.reshape(B, T, D) * g
+    y = rmsnorm(y.reshape(B, T, H, N), unflatten(p.ln_x, 0, (H, N)),
+                cfg.norm_eps)
+    y = flatten(y, 2, 2) * g
     out = y @ p.wo
     if cache is not None:
         cache["shift_t"].copy_(x[:, -1:])
         cache["state"].copy_(state)
-    return out, cache
+    return constrain(out, "batch", "seq", "embed"), cache
 
 
 def channel_mix(p: ChannelMix, x: torch.Tensor, cfg: ModelConfig,
@@ -146,6 +148,7 @@ def channel_mix(p: ChannelMix, x: torch.Tensor, cfg: ModelConfig,
     xk = x + (xx - x) * p.mu_ck.to(x.dtype)
     xr = x + (xx - x) * p.mu_cr.to(x.dtype)
     h = torch.square(torch.relu(xk @ p.w_in))
+    h = constrain(h, "batch", "seq", "ff")
     out = torch.sigmoid(xr @ p.w_recv) * (h @ p.w_out)
     if cache is not None:
         cache["shift_c"].copy_(x[:, -1:])

@@ -25,6 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..shard import (constrain, flatten, is_dtensor, local_call, local_over,
+                     sum_over, unflatten)
 from .config import ModelConfig
 from .layers import _normal, _param, generator_device, target_device
 
@@ -41,7 +43,47 @@ def chunked_linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The per-channel branch folds the decay into q and k (q e^{A})(k e^{-A})
     and so needs chunk * max|log_a| well under log(f32 max) ~ 88; the
-    scalar branch evaluates exp(A_t - A_s) unfactored."""
+    scalar branch evaluates exp(A_t - A_s) unfactored.
+
+    On a mesh (DTensors) the reference's constraint holds: the recurrence
+    is split over the state feature dim Dk ('state_dk', where it divides;
+    head counts often do not) and over batch.  Each rank scans its shard
+    (``shard.local_over``) and, since every term of y is linear in one
+    product over Dk, sums its slice's part of y over the Dk shards once a
+    call (``shard.sum_over``), instead of gathering the state.  (The
+    reference's GSPMD program sums the scores and then the inter-chunk
+    output once a chunk: the same result, more collectives.)"""
+    if is_dtensor(q):
+        return _scan_on_mesh(q, k, v, log_a, chunk, bonus, s0, return_state)
+    return _scan(q, k, v, log_a, chunk, bonus, s0, return_state)
+
+
+def _scan_on_mesh(q, k, v, log_a, chunk, bonus, s0, return_state):
+    from torch.distributed.tensor import Shard
+    q = constrain(q, "batch", None, None, "state_dk")
+    k = constrain(k, "batch", None, None, "state_dk")
+    mesh = q.device_mesh
+    groups = [mesh.get_group(i) for i, p in enumerate(q.placements)
+              if p == Shard(3)]
+    x4 = ("batch", None, None, "state_dk")
+    v4 = ("batch", None, None, None)
+    st = ("batch", None, "state_dk", None)
+    names = (x4, x4, v4, x4 if log_a.dim() == 4 else ("batch", None, None),
+             None if bonus is None else (None, "state_dk"),
+             None if s0 is None else st)
+    y, S = local_over(
+        lambda q, k, v, a, u, s: _scan(q, k, v, a, chunk, u, s, True,
+                                       lambda t: sum_over(t, groups)),
+        (q, k, v, log_a, bonus, s0), names, (v4, st))
+    return (y, S) if return_state else y
+
+
+def _scan(q, k, v, log_a, chunk, bonus, s0, return_state,
+          dk_sum=lambda t: t):
+    """The scan on local tensors.  ``dk_sum`` completes the output where
+    Dk is split (identity otherwise): every term of y is linear in one
+    product over Dk (the scores, the bonus, q . S), so each rank computes
+    its Dk slice's part of y and one sum completes it."""
     B, T, H, Dk = q.shape
     Dv = v.shape[-1]
     nc = T // chunk
@@ -93,7 +135,7 @@ def chunked_linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         y_inter.append(torch.einsum("bthd,bhdv->bthv", q_i[:, c], S))
         S = S * decay[:, c] + torch.einsum("bthd,bthv->bhdv", kst[:, c],
                                            vc[:, c])
-    y = y_intra + torch.stack(y_inter, dim=1)
+    y = dk_sum(y_intra + torch.stack(y_inter, dim=1))
     y = y.reshape(B, T, H, Dv).to(v.dtype)
     if return_state:
         return y, S
@@ -104,7 +146,40 @@ def linear_scan_step(S: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, log_a: torch.Tensor,
                      bonus: Optional[torch.Tensor] = None):
     """Single-token recurrence for decode.  S: (B,H,Dk,Dv); q/k: (B,H,Dk);
-    v: (B,H,Dv); log_a: (B,H) or (B,H,Dk).  Returns (S', y: (B,H,Dv))."""
+    v: (B,H,Dv); log_a: (B,H) or (B,H,Dk).  Returns (S', y: (B,H,Dv)).
+
+    On a mesh (a DTensor state, split as the cache is: batch, and heads or
+    else Dk) each rank steps its shard of the state through ``local_map``
+    and the output, linear in its Dk products, is summed over the Dk
+    shards."""
+    if is_dtensor(S):
+        return _step_on_mesh(S, q, k, v, log_a, bonus)
+    return _step(S, q, k, v, log_a, bonus)
+
+
+def _step_on_mesh(S, q, k, v, log_a, bonus):
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = S.device_mesh
+    keep = [p if isinstance(p, Shard) and p.dim < 3 else Replicate()
+            for p in S.placements]
+    groups = [mesh.get_group(i) for i, p in enumerate(keep) if p == Shard(2)]
+
+    def on(nd, to):     # S's splits of (B, H, Dk) moved to a tensor's dims
+        return [Shard(to[p.dim]) if isinstance(p, Shard)
+                and to.get(p.dim) is not None and to[p.dim] < nd
+                else Replicate() for p in keep]
+
+    bhd = on(3, {0: 0, 1: 1, 2: 2})
+    bh = on(3, {0: 0, 1: 1})
+    run = lambda S, q, k, v, a, u: _step(S, q, k, v, a, u,
+                                         lambda t: sum_over(t, groups))
+    return local_call(run, mesh, (keep, bh), (
+        keep, bhd, bhd, bh, bhd if log_a.dim() == 3 else on(2, {0: 0, 1: 1}),
+        None if bonus is None else on(2, {1: 0, 2: 1})),
+        (S, q, k, v, log_a, bonus))
+
+
+def _step(S, q, k, v, log_a, bonus, dk_sum=lambda t: t):
     f32 = torch.float32
     Sf = S.to(f32)
     a = torch.exp(log_a.to(f32))
@@ -120,7 +195,7 @@ def linear_scan_step(S: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
         y = torch.einsum("bhd,bhdv->bhv", qf, Sf * a)
         y = y + torch.einsum("bhd,bhd->bh", qf,
                              bonus.to(f32)[None] * kf)[..., None] * vf
-    return S_new.to(S.dtype), y.to(v.dtype)
+    return S_new.to(S.dtype), dk_sum(y).to(v.dtype)
 
 
 # --------------------------------------------------------------- Mamba2 block
@@ -190,7 +265,8 @@ def ssm_block(p: SSMBlock, x: torch.Tensor, cfg: ModelConfig,
 
     dt = F.softplus(dt.to(f32) + p.dt_bias.to(f32))               # (B,T,H)
     log_a = -torch.exp(p.A_log.to(f32)) * dt                      # (B,T,H)
-    v = (xs.reshape(B, T, H, P).to(f32) * dt[..., None]).to(x.dtype)
+    xh = unflatten(xs, -1, (H, P))
+    v = (xh.to(f32) * dt[..., None]).to(x.dtype)
     k = B_[:, :, None, :].expand(B, T, H, N).to(x.dtype)
     q = C_[:, :, None, :].expand(B, T, H, N).to(x.dtype)
 
@@ -207,13 +283,14 @@ def ssm_block(p: SSMBlock, x: torch.Tensor, cfg: ModelConfig,
         state, y1 = linear_scan_step(cache["state"], q[:, 0], k[:, 0],
                                      v[:, 0], log_a[:, 0])
         y = y1[:, None]
-    y = y + p.D.to(f32)[:, None] * xs.reshape(B, T, H, P)
-    y = y.reshape(B, T, d_inner).to(x.dtype) * F.silu(z)
+    y = y + p.D.to(f32)[:, None] * xh
+    y = flatten(y, 2, 2).to(x.dtype) * F.silu(z)
+    y = constrain(y, "batch", "seq", "ff")
     out = y @ p.out_proj
     if cache is not None:
         cache["conv"].copy_(conv)
         cache["state"].copy_(state)
-    return out, cache
+    return constrain(out, "batch", "seq", "embed"), cache
 
 
 def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype=torch.bfloat16,

@@ -17,6 +17,7 @@ import torch
 from ..models import decode_step, init_params, lm_loss, prefill
 from ..models.config import ModelConfig
 from ..optim import AdamWConfig, OptState, adamw_init, adamw_update
+from ..shard import constrain, is_dtensor
 
 
 @dataclass(frozen=True)
@@ -45,12 +46,22 @@ def loss_and_grads(params: torch.nn.Module, cfg: ModelConfig, batch: dict,
     """``lm_loss`` (detached) and its gradients keyed by parameter name, in
     the parameters' own type, as ``jax.value_and_grad`` gives them; a
     parameter the loss does not reach (a stub frontend's ``embed``) gets
-    zeros, as in JAX."""
+    zeros, as in JAX.  On a mesh (DTensor parameters) each gradient is
+    brought to its parameter's placements: the gradient sync (within the
+    pod a reduce-scatter onto the FSDP shard, across pods the sum of that
+    shard: the Pig schedule)."""
     named = list(params.named_parameters())
     loss = lm_loss(params, cfg, batch, impl=impl, remat=remat)
     got = torch.autograd.grad(loss, [p for _, p in named], allow_unused=True)
-    return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+    return loss.detach(), {n: torch.zeros_like(p) if g is None
+                           else _like(g, p)
                            for (n, p), g in zip(named, got)}
+
+
+def _like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def build_train_step(cfg: ModelConfig, opts: TrainOptions = TrainOptions()):
@@ -99,9 +110,11 @@ def build_prefill_step(cfg: ModelConfig, impl: str = "ref"):
 
 def build_serve_step(cfg: ModelConfig, impl: str = "ref"):
     """One batched greedy decode step: (params, cache, tokens, pos) ->
-    (cache, next_tokens int32)."""
+    (cache, next_tokens int32).  On a mesh the logits are gathered over
+    the vocab before the argmax."""
     def serve_step(params, cache, tokens, pos):
         logits, new_cache = decode_step(params, cfg, cache, tokens, pos,
                                         impl=impl)
+        logits = constrain(logits, "batch", None)
         return new_cache, torch.argmax(logits, dim=-1).to(torch.int32)
     return serve_step

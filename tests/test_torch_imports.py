@@ -34,7 +34,10 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.experiments.megagrid",
               "repro_torch.kernels.autograd", "repro_torch.optim.adamw",
               "repro_torch.data.pipeline", "repro_torch.train.step",
-              "repro_torch.checkpoint.manager", "repro_torch.launch.train"):
+              "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+              "repro_torch.shard", "repro_torch.train.sharding",
+              "repro_torch.roofline", "repro_torch.launch.dryrun",
+              "repro_torch.launch.hlotop", "repro_torch.launch.reanalyze"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"
