@@ -19,9 +19,12 @@ Phases, in order; any failure exits non-zero:
              segment of 1024, padded groups of size 0 (with and without a
              tail), the WAN scenarios' per-region groups (F = 48 with
              16/16/16, F = 100 with 34/33/33, crossing 32-slot windows),
-             the megagrid study's group layouts (F = 8, 16, 24: Paxos and
-             R = 1 to 8 padded to the bucket's group count, N = 5 in F = 8
-             with a tail; 4,096-cell chunks at B = 4 and 8), ties, masked
+             the backend override's layouts (Table 2's N = 5: F = 4 as
+             [4] and [2, 2], unpadded; Fig. 8's N = 49 at R = 7 and
+             N = 101 at R = 10), the megagrid study's group layouts
+             (F = 8, 16, 24: Paxos and R = 1 to 8 padded to the bucket's
+             group count, N = 5 in F = 8 with a tail; 4,096-cell chunks
+             at B = 4 and 8), ties, masked
              slots and a fully masked segment; one launch a call,
              ``launches_sm90`` moving for the sm90 kernel;
 4. timing  - the three at each batch grid's shape (384 x 1024, 2048 x 256,
@@ -92,6 +95,26 @@ Phases, in order; any failure exits non-zero:
              the roofline note;
 23. jaxsim - ``relay_load_mc(25, 3, 8192)`` on the card == the CPU's, bit
              for bit; ``latency_curve`` within 1e-6 relative.
+31. figures - (run after phase 23, with the batch path) the 44
+             discrete-event scenarios marked ``batch_ok`` through
+             ``run_scenarios(..., backend_override="batch")`` on cuda:
+             Fig. 8's 20 and Tables 1-2's 4 at their full grids (the
+             paper's), zipf, conflict, wan and avail quick (every one,
+             ``quick_skip`` too); per scenario
+             the cells, scan steps, launches, wall, ms a step and mean
+             throughput, with
+             ``launches_sm90 == scan_steps`` (EPaxos: 2 x), the switched
+             spec in the artifact, no cell exhausted or non-finite; the
+             report rows (``report.rows_for_artifact``: the tables'
+             asserts of Eq. 1-3 against the measured loads), Fig. 8's best
+             R (rotating must be 1; static printed), and the gate's seven
+             quick-mode windows that name these scenarios;
+32. fcheck - quick ``fig8/static/R=1``, ``table2/validate/R=2``,
+             ``fig8/scale/N=101/R=10`` and ``avail/relay/N=49``: card ==
+             rerun == the plain fan-in's run on the card, bit for bit,
+             extras included; card vs CPU within phase 6's tolerance, or
+             the cell's envelope (``FCHECK``: a static relay's latency
+             envelope, a chaotic cell's tolerance).
 7. flash   - the sm90 flash_attention kernel against its plain version on
              the card in bf16 at granite-8b's prefill shape, granite at its
              max_seq_len, a ragged S, gemma-7b's head dim 256 and a
@@ -251,11 +274,17 @@ Phases, in order; any failure exits non-zero:
              fake world of 256 ranks cannot share a process with NCCL),
              its JSON fields and H100 roofline terms printed.
 
+The batch phases (17-22, 31-32) run their grids and their check runs in
+``POOL_WORKERS`` spawned processes that drive the one card side by side
+(the step loops are host-bound), the costliest first; each worker sets
+the fan-in counts to 0 before its run and reads them after.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 import json
 import math
+import multiprocessing
 import os
 import re
 import subprocess
@@ -278,9 +307,9 @@ CHECK = "scale/batch/replicates/R=3"
 # the group kernel's other branches (phase 17) and one quick scenario of
 # each (phase 18)
 BRANCH_FAMILIES = "wan,avail,batching,obs,reads"
-BRANCH_CHECKS = ("batching/paxos/m=8/batch", "wan/N=25/batch",
-                 "avail/relay/N=25/batch", "reads/paxos/lease/r=0.9/batch",
-                 "obs/pigpaxos/backlog/batch")
+BRANCH_CHECKS = ("avail/relay/N=25/batch", "reads/paxos/lease/r=0.9/batch",
+                 "obs/pigpaxos/backlog/batch", "wan/N=25/batch",
+                 "batching/paxos/m=8/batch")
 OBS = "obs/pigpaxos/backlog/batch"
 SPEEDUPS = (("batching/paxos/m=8/batch", "batching/paxos/m=1/batch"),
             ("reads/paxos/lease/r=0.9/batch", "reads/paxos/log/r=0.9/batch"))
@@ -310,6 +339,29 @@ PLAIN_CHUNKS = (("group", 8, 4, "lan"), ("group", 16, 16, "wan3"),
 # counts within one request at the window edges, latency percentiles to
 # rel 1e-5, message loads to abs 1e-6
 COUNT_SLACK, LAT_REL, MSG_ABS = 1, 1e-5, 1e-6
+# the batch phases (17-22, 31-32) run their grids and check runs in this
+# many processes on the one card: alone or four side by side, a
+# scenario's wall is the same within the host's spread (on an H100 80GB
+# HBM3 host with 8 cores, four processes ran 8 Fig. 8 and avail grids
+# 1.76x faster than one, results bit for bit equal; four threads in one
+# process were 3.2x slower)
+POOL_WORKERS = 4
+# phase 31: Fig. 8 and Tables 1-2 run at their full grids (the paper's),
+# the rest quick; the gate's quick-mode windows that name them
+FIGURES_FULL = ("fig8/", "table1/", "table2/")
+FIGURE_WINDOWS = ("fig8/rotating/R=1", "table1/validate/R=1",
+                  "table2/validate/R=1", "zipf/pigpaxos/theta=0.99",
+                  "conflict/N=25/c=0.1", "wan/N=25", "avail/leader/N=25")
+# phase 32: the cells, and the tolerance card vs CPU (tests/figures_parity.py):
+# phase 6's, or for a static relay its latency envelope (the reference's jit
+# run against its own op-by-op run), or for a chaotic cell counts within
+# 0.5%, percentiles rel 3%, loads abs 1e-3, timeline buckets within 5% of
+# the peak bucket
+FCHECK = {"avail/relay/N=49": "chaotic", "fig8/static/R=1": "static",
+          "table2/validate/R=2": "chaotic", "fig8/scale/N=101/R=10": None}
+STATIC_LAT_REL = 5e-5
+CHAOTIC_COUNT_REL, CHAOTIC_LAT_REL = 5e-3, 3e-2
+CHAOTIC_MSG_ABS, CHAOTIC_TIMELINE_REL = 1e-3, 5e-2
 # flash_attention against its plain version in bf16: both compute in f32
 # and round once, so 2 bf16 ulps (2**-7 relative each) cover it
 FLASH_ATOL, FLASH_RTOL = 2e-3, 1.6e-2
@@ -576,7 +628,23 @@ def fanin_cases():
         (24, "20+tail", [7, 7, 6], 2, 192, 8),
         (1024, "31 of 32", [32] * 31, 1, 48, 8),
         (48, "wan/N=49", [16, 16, 16], 0, 32, 8),
-        (100, "wan/N=101", [34, 33, 33], 0, 32, 8)] + megagrid_cases()
+        (100, "wan/N=101", [34, 33, 33], 0, 32, 8)] + figure_cases() \
+        + megagrid_cases()
+
+
+def figure_cases():
+    """The grouped entry's layouts that the backend override's scenarios
+    add (phase 31): Table 2's N=5 (F=4, R=1 and 2, unpadded) and Fig. 8's
+    sweep at N=49, R=7 and N=101, R=10, as ``partition_followers`` makes
+    them."""
+    from repro_torch.core.pig import partition_followers
+    cases = []
+    for F, r, cells, tag in ((4, 1, 8, "table2"), (4, 2, 8, "table2"),
+                             (48, 7, 32, "fig8"), (100, 10, 32, "fig8")):
+        sizes = [len(g) for g in partition_followers(list(range(1, F + 1)),
+                                                     r)]
+        cases.append((F, f"{tag} R={r}", sizes, 0, cells, 8))
+    return cases
 
 
 def megagrid_cases():
@@ -882,6 +950,80 @@ def cross_check(device):
                          f"tolerance: {worst}")
 
 
+# ----------------------------------------------- the batch phases' pool
+def scenario_run(name, quick):
+    """Pool worker: one registered scenario through ``run_scenarios`` on
+    cuda (``backend_override="batch"`` switches a ``batch_ok``
+    discrete-event one), the fan-in counts set to 0 just before and read
+    just after.  Returns the scenario's artifact, its launches and sm90
+    launches, and its wall."""
+    import torch
+    from repro_torch.experiments import registry, runner
+    from repro_torch.kernels import segfanin
+    sc = registry.get(name)
+    segfanin.launches = segfanin.launches_sm90 = 0
+    t0 = time.perf_counter()
+    art = runner.run_scenarios([sc], quick=quick, ignore_quick_skip=True,
+                               backend_override="batch", device="cuda")
+    torch.cuda.synchronize()
+    return (art["scenarios"][0], segfanin.launches, segfanin.launches_sm90,
+            time.perf_counter() - t0)
+
+
+def units_run(spec, device, kernel):
+    """Pool worker: ``simulate_scenario``'s units for ``spec`` (a
+    registered scenario's name, run quick as the runner would, or the
+    call's own keyword arguments with ``protocol`` and ``n``) on
+    ``device`` through ``kernel``, and the run's wall."""
+    import torch
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import registry
+    if isinstance(spec, str):
+        sc = registry.get(spec)
+        kw = dict(branch_kwargs(sc, sc.resolve(True)), protocol=sc.protocol,
+                  n=sc.n)
+    else:
+        kw = dict(spec)
+    if device == "cpu":
+        # the step loop is bound by per-operation overhead: one intra-op
+        # thread leaves the other workers their cores
+        torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    units = vectorsim.simulate_scenario(kw.pop("protocol"), kw.pop("n"),
+                                        kernel=kernel, device=device, **kw)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return units, time.perf_counter() - t0
+
+
+def run_cost(name, quick):
+    """A scenario's expected host time, to start the costliest first: the
+    requests its step budget provides for (the runner's rate estimate
+    over the window) at ~0.5 ms a group-kernel request (8 a step), 2 ms
+    an EPaxos one, half again on the fault-mask path."""
+    from repro_torch.core import vectorsim
+    from repro_torch.experiments import registry
+    sc = registry.get(name)
+    rs = sc.resolve(quick)
+    kw = branch_kwargs(sc, rs)
+    cfg = vectorsim.build_config(sc.protocol, sc.n, pig=kw["pig"],
+                                 topo=kw["topo"], workload=kw["workload"],
+                                 masks=kw["masks"], batch_m=kw["batch_m"])
+    rate = max(vectorsim._estimate_rate(cfg, k // kw["batch_m"])
+               for k in rs.clients)
+    per = 2.0 if sc.protocol == "epaxos" else 0.5
+    return rate * (rs.warmup + rs.duration) * per * (
+        1.5 if kw["masks"] is not None else 1.0)
+
+
+def pool_runs(pool, fn, args, costs):
+    """``fn(*a)`` for each ``a`` of ``args`` in the pool, the costliest
+    submitted first; the results in ``args``' order."""
+    order = sorted(range(len(args)), key=lambda i: -costs[i])
+    jobs = {i: pool.apply_async(fn, args[i]) for i in order}
+    return [jobs[i].get() for i in range(len(args))]
+
+
 # -------------------------------------------------------------- phase 17
 def extras_shape(units):
     """The units' timeline / obs / rw records as shapes (cells x length)."""
@@ -895,55 +1037,24 @@ def extras_shape(units):
     return " ".join(out)
 
 
-def run_branches(device):
+def run_branches(pool):
     """Phase 17: the 14 scenarios of the other branches at full grids."""
-    import torch
-    from repro_torch.experiments import registry, runner
-    from repro_torch.kernels import segfanin
-    with open(os.path.join(ROOT, "benchmarks", "reference_bounds.json")) as f:
-        bounds = json.load(f)["bounds"]
-    scenarios = registry.select(BRANCH_FAMILIES)
-    if len(scenarios) != 14:
-        raise SystemExit(f"{BRANCH_FAMILIES}: {len(scenarios)} scenarios, "
+    from repro_torch.experiments import registry
+    names = [sc.name for sc in registry.select(BRANCH_FAMILIES)
+             if sc.backend == "batch"]
+    if len(names) != 14:
+        raise SystemExit(f"{BRANCH_FAMILIES}: {len(names)} scenarios, "
                          f"expected 14")
-    total, tput = 0, {}
-    for sc in scenarios:
-        segfanin.launches = segfanin.launches_sm90 = 0
-        t0 = time.perf_counter()
-        art = runner.run_scenarios([sc], quick=False, device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, sm90 = segfanin.launches, segfanin.launches_sm90
-        sa = art["scenarios"][0]
-        run, units = sa["run"], sa["units"]
-        check_units(sc.name, units)
-        if not launches == sm90 == run["scan_steps"]:
-            raise SystemExit(f"{sc.name}: {launches} fan-in launches ({sm90} "
-                             f"of seg_fanin_sm90) for {run['scan_steps']} "
-                             f"scan steps")
-        tput[sc.name] = sa["summary"]["throughput"]["mean"]
-        log(f"branches {sc.name:30s} cells={run['cells']:3d} "
-            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:5d} "
-            f"wall={wall:.3f}s cells/s={run['cells'] / wall:.2f} "
-            f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
-            f"tput_mean={tput[sc.name]} {extras_shape(units)}")
-        total += launches
+    arts, total = run_grids(pool, "branches", [(n, False) for n in names],
+                            [OBS])
     for fast, slow in SPEEDUPS:
-        ratio = tput[fast] / tput[slow]
+        ratio = (arts[fast]["summary"]["throughput"]["mean"]
+                 / arts[slow]["summary"]["throughput"]["mean"])
         log(f"branches {fast} / {slow}: {ratio:.4f}x (floor "
             f"{SPEEDUP_MIN}x)")
         if ratio < SPEEDUP_MIN:
             raise SystemExit(f"{fast}: {ratio:.4f}x {slow}, under the "
                              f"{SPEEDUP_MIN}x floor")
-    (obs,) = registry.select(OBS)
-    art = runner.run_scenarios([obs], quick=True, device=device)
-    mean = art["scenarios"][0]["summary"]["throughput"]["mean"]
-    lo, hi = bounds[OBS]
-    log(f"branches {OBS} quick mean throughput {mean} "
-        f"{'inside' if lo <= mean <= hi else 'OUTSIDE'} [{lo}, {hi}]")
-    if not lo <= mean <= hi:
-        raise SystemExit(f"{OBS}: quick mean throughput {mean} outside "
-                         f"[{lo}, {hi}]")
     return total
 
 
@@ -991,49 +1102,10 @@ def unit_gap(x, y, worst):
                 x["rw"][k] - y["rw"][k]) / abs(y["rw"][k]))
 
 
-def check_branches(device):
+def check_branches(pool):
     """Phase 18: card == rerun == plain fan-in, bit for bit, extras
     included; card vs CPU within phase 6's tolerance."""
-    from repro_torch.core import vectorsim
-    from repro_torch.experiments import registry
-    for name in BRANCH_CHECKS:
-        (sc,) = registry.select(name)
-        kw = branch_kwargs(sc, sc.resolve(True))
-
-        def run(dev, kernel="auto"):
-            return vectorsim.simulate_scenario(sc.protocol, sc.n,
-                                               kernel=kernel, device=dev,
-                                               **kw)
-        t0 = time.perf_counter()
-        a, b, p = run(device), run(device), run(device, "torch")
-        card_s = time.perf_counter() - t0
-        if a != b:
-            raise SystemExit(f"{name}: two runs on the card differ")
-        if a != p:
-            raise SystemExit(f"{name}: kernel run != plain-version run on "
-                             f"the card")
-        t0 = time.perf_counter()
-        c = run("cpu")
-        cpu_s = time.perf_counter() - t0
-        worst = {"count": 0, "committed": 0, "lat_rel": 0.0, "msg_abs": 0.0,
-                 "timeline": 0, "backlog_n": 0, "backlog_rel": 0.0,
-                 "rw_count": 0, "rw_rel": 0.0}
-        for x, y in zip(a, c):
-            if sorted(x) != sorted(y):
-                raise SystemExit(f"{name}: card and cpu units differ in "
-                                 f"their fields")
-            unit_gap(x, y, worst)
-        log(f"bcheck   {name} quick ({len(a)} cells): cuda == cuda rerun, "
-            f"kernel == plain version (extras included; 3 card runs "
-            f"{card_s:.2f}s, cpu {cpu_s:.2f}s); cuda vs cpu worst {worst}")
-        if (worst["count"] > COUNT_SLACK or worst["committed"] > COUNT_SLACK
-                or worst["lat_rel"] > LAT_REL or worst["msg_abs"] > MSG_ABS
-                or worst["timeline"] > COUNT_SLACK or worst["backlog_n"] > 0
-                or worst["backlog_rel"] > LAT_REL
-                or worst["rw_count"] > COUNT_SLACK
-                or worst["rw_rel"] > LAT_REL):
-            raise SystemExit(f"{name}: cuda and cpu disagree beyond the "
-                             f"parity tolerance: {worst}")
+    card_vs_cpu(pool, "bcheck", [(n, n, None) for n in BRANCH_CHECKS])
 
 
 # -------------------------------------------------------------- phase 19
@@ -1139,49 +1211,55 @@ def check_units(name, units):
                          f"non-finite/zero results, e.g. {bad[0]}")
 
 
-def run_grids(device, scenarios, tag, rounds, bounds=None):
-    """Full grids through ``run_scenarios`` on cuda: ``rounds`` sm90
-    fan-in launches a scan step (2 for EPaxos, 1 for the group kernel),
-    and the runner's own launch count equal to it; no cell exhausted or
-    non-finite.  Returns the launches."""
-    import torch
-    from repro_torch.experiments import runner
-    from repro_torch.kernels import segfanin
-    total = 0
-    for sc in scenarios:
-        segfanin.launches = segfanin.launches_sm90 = 0
-        t0 = time.perf_counter()
-        art = runner.run_scenarios([sc], quick=False, device=device)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches, sm90 = segfanin.launches, segfanin.launches_sm90
-        sa = art["scenarios"][0]
+def run_grids(pool, tag, grids, windows=()):
+    """``grids``, (name, quick) pairs, through ``run_scenarios`` on cuda in
+    the pool (``scenario_run``): each scan step launches the sm90 fan-in
+    once (twice for EPaxos), and the runner counted the same; no cell
+    exhausted or non-finite; the artifact records the batch backend.  Per
+    scenario its cells, scan steps, launches, wall, ms a step, mean
+    throughput and extras.  ``windows``: scenarios whose quick mean
+    throughput must sit inside its ``reference_bounds.json`` window (run
+    quick here unless a grid is their quick run).  Returns ({name:
+    artifact}, launches)."""
+    bounds = gate_windows(windows)
+    tasks = list(grids) + [(n, True) for n in windows
+                           if (n, True) not in grids]
+    results = pool_runs(pool, scenario_run, tasks,
+                        [run_cost(n, quick) for n, quick in tasks])
+    arts, total, quick_means = {}, 0, {}
+    for (name, quick), (sa, launches, sm90, wall) in zip(tasks, results):
         run = sa["run"]
-        check_units(sc.name, sa["units"])
+        tput = sa["summary"]["throughput"]["mean"]
+        if quick:
+            quick_means[name] = tput
+        if (name, quick) not in grids:
+            continue
+        check_units(name, sa["units"])
+        rounds = 2 if sa["spec"]["protocol"] == "epaxos" else 1
         if not (launches == sm90 == run["fanin_launches"]
                 == rounds * run["scan_steps"]):
-            raise SystemExit(f"{sc.name}: {launches} fan-in launches ({sm90} "
+            raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
                              f"of seg_fanin_sm90, the runner counted "
                              f"{run['fanin_launches']}) for "
                              f"{run['scan_steps']} scan steps x {rounds}")
-        tput = sa["summary"]["throughput"]["mean"]
-        log(f"{tag:8s} {sc.name:36s} cells={run['cells']:3d} "
-            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:6d} "
-            f"wall={wall:.3f}s cells/s={run['cells'] / wall:.3f} "
+        if sa["backend"] != "batch" or sa["spec"]["backend"] != "batch":
+            raise SystemExit(f"{name}: the artifact does not record the "
+                             f"batch backend")
+        log(f"{tag:8s} {name:36s} {'quick' if quick else 'full':5s} "
+            f"cells={run['cells']:3d} scan_steps={run['scan_steps']:5d} "
+            f"launches_sm90={sm90:6d} wall={wall:.3f}s "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
-            f"tput_mean={tput}")
+            f"tput_mean={tput} {extras_shape(sa['units'])}")
+        arts[name] = sa
         total += launches
-    for name, (lo, hi) in (bounds or {}).items():
-        (sc,) = [s for s in scenarios if s.name == name]
-        art = runner.run_scenarios([sc], quick=True, device=device,
-                                   ignore_quick_skip=True)
-        mean = art["scenarios"][0]["summary"]["throughput"]["mean"]
+    for name, (lo, hi) in bounds.items():
+        mean = quick_means[name]
         log(f"{tag:8s} {name} quick mean throughput {mean} "
             f"{'inside' if lo <= mean <= hi else 'OUTSIDE'} [{lo}, {hi}]")
         if not lo <= mean <= hi:
             raise SystemExit(f"{name}: quick mean throughput {mean} outside "
                              f"[{lo}, {hi}]")
-    return total
+    return arts, total
 
 
 def gate_windows(names):
@@ -1190,64 +1268,80 @@ def gate_windows(names):
     return {n: bounds[n] for n in names}
 
 
-def run_conflict(device):
+def run_conflict(pool):
     """Phase 20: the 8 conflict/*/batch full grids."""
     from repro_torch.experiments import registry
-    scenarios = registry.select("conflict")
-    if len(scenarios) != 8:
-        raise SystemExit(f"conflict: {len(scenarios)} scenarios, expected 8")
-    return run_grids(device, scenarios, "conflict", 2,
-                     gate_windows([CONFLICT_CHECK]))
+    names = [sc.name for sc in registry.select("conflict")
+             if sc.backend == "batch"]
+    if len(names) != 8:
+        raise SystemExit(f"conflict: {len(names)} scenarios, expected 8")
+    return run_grids(pool, "conflict", [(n, False) for n in names],
+                     [CONFLICT_CHECK])[1]
 
 
 # -------------------------------------------------------------- phase 21
-def card_vs_cpu(tag, name, run):
-    """``run(device, kernel)`` -> units: card == rerun == the plain
-    fan-in's run on the card, bit for bit; card vs CPU within phase 6's
-    tolerance."""
-    t0 = time.perf_counter()
-    a, b, p = run("cuda", "auto"), run("cuda", "auto"), run("cuda", "torch")
-    card_s = time.perf_counter() - t0
-    if a != b:
-        raise SystemExit(f"{name}: two runs on the card differ")
-    if a != p:
-        raise SystemExit(f"{name}: kernel run != plain-version run on the "
-                         f"card")
-    t0 = time.perf_counter()
-    c = run("cpu", "auto")
-    cpu_s = time.perf_counter() - t0
-    worst = {"count": 0, "committed": 0, "lat_rel": 0.0, "msg_abs": 0.0,
-             "timeline": 0, "backlog_n": 0, "backlog_rel": 0.0,
-             "rw_count": 0, "rw_rel": 0.0}
-    for x, y in zip(a, c):
-        unit_gap(x, y, worst)
-    same = a == c
-    log(f"{tag:8s} {name} ({len(a)} cells): cuda == cuda rerun, kernel == "
-        f"plain version (3 card runs {card_s:.2f}s, cpu {cpu_s:.2f}s); "
-        f"cuda == cpu bit for bit: {same}; worst {worst}")
-    if (worst["count"] > COUNT_SLACK or worst["committed"] > COUNT_SLACK
-            or worst["lat_rel"] > LAT_REL or worst["msg_abs"] > MSG_ABS):
-        raise SystemExit(f"{name}: cuda and cpu disagree beyond the parity "
-                         f"tolerance: {worst}")
+def card_vs_cpu(pool, tag, checks):
+    """``checks``: (name, spec, envelope) triples.  Each ``spec`` (see
+    ``units_run``) runs four times in the pool, all submitted first: on
+    the card, again, through the plain fan-in on the card, on the CPU.
+    Card == rerun == plain, bit for bit, extras included; card vs CPU
+    within phase 6's tolerance (extras: timeline buckets and read/write
+    counts within one, backlog and read/write means rel 1e-5), or the
+    check's ``envelope``: "static" (a static relay's latency envelope) or
+    "chaotic" (``CHAOTIC_*``)."""
+    runs = (("cuda", "auto"), ("cuda", "auto"), ("cuda", "torch"),
+            ("cpu", "auto"))
+    jobs = [[pool.apply_async(units_run, (spec, dev, kernel))
+             for dev, kernel in runs] for _, spec, _ in checks]
+    for (name, _, envelope), js in zip(checks, jobs):
+        (a, wa), (b, wb), (p, wp), (c, wc) = [j.get() for j in js]
+        if a != b:
+            raise SystemExit(f"{name}: two runs on the card differ")
+        if a != p:
+            raise SystemExit(f"{name}: kernel run != plain-version run on "
+                             f"the card")
+        worst = {"count": 0, "committed": 0, "lat_rel": 0.0, "msg_abs": 0.0,
+                 "timeline": 0, "backlog_n": 0, "backlog_rel": 0.0,
+                 "rw_count": 0, "rw_rel": 0.0}
+        for x, y in zip(a, c):
+            if sorted(x) != sorted(y):
+                raise SystemExit(f"{name}: card and cpu units differ in "
+                                 f"their fields")
+            unit_gap(x, y, worst)
+        worst["count"] = max(worst["count"], worst.pop("committed"))
+        tol = {"count": COUNT_SLACK, "lat_rel": LAT_REL, "msg_abs": MSG_ABS,
+               "timeline": COUNT_SLACK, "backlog_n": 0,
+               "backlog_rel": LAT_REL, "rw_count": COUNT_SLACK,
+               "rw_rel": LAT_REL}
+        if envelope == "static":
+            tol["lat_rel"] = STATIC_LAT_REL
+        elif envelope == "chaotic":
+            peak = max([max(u["timeline"]["counts"]) for u in c
+                        if "timeline" in u] or [0])
+            tol.update(count=CHAOTIC_COUNT_REL * min(u["count"] for u in c),
+                       lat_rel=CHAOTIC_LAT_REL, msg_abs=CHAOTIC_MSG_ABS,
+                       timeline=CHAOTIC_TIMELINE_REL * peak)
+        log(f"{tag:8s} {name} ({len(a)} cells): cuda == cuda rerun, kernel "
+            f"== plain version (extras included; card runs {wa:.2f}, "
+            f"{wb:.2f}, {wp:.2f} s, cpu {wc:.2f} s); cuda == cpu bit for "
+            f"bit: {a == c}; worst {worst}; tolerance "
+            f"({envelope or 'phase 6'}) {tol}")
+        bad = {k: worst[k] for k in tol if worst[k] > tol[k]}
+        if bad:
+            raise SystemExit(f"{name}: cuda and cpu disagree beyond the "
+                             f"tolerance: {bad}")
 
 
-def check_conflict(device):
+def check_conflict(pool):
     """Phase 21: quick conflict/N=25/c=0.1/batch and a zipfian EPaxos
     grid."""
-    from repro_torch.core import vectorsim
     from repro_torch.core.workload import WorkloadConfig
-    from repro_torch.experiments import registry
-    (sc,) = registry.select(CONFLICT_CHECK)
-    kw = branch_kwargs(sc, sc.resolve(True))
-    card_vs_cpu("ccheck", f"{CONFLICT_CHECK} quick",
-                lambda dev, kernel: vectorsim.simulate_scenario(
-                    sc.protocol, sc.n, kernel=kernel, device=dev, **kw))
-    wl = WorkloadConfig(key_dist="zipfian", zipf_theta=0.99)
-    card_vs_cpu("ccheck", "epaxos N=25 zipfian(0.99) 40 clients x 2 seeds",
-                lambda dev, kernel: vectorsim.simulate_scenario(
-                    "epaxos", 25, workload=wl, clients=(40,),
-                    seeds=(1, 2), duration=0.2, warmup=0.1,
-                    kernel=kernel, device=dev))
+    zipf = dict(protocol="epaxos", n=25, clients=(40,), seeds=(1, 2),
+                duration=0.2, warmup=0.1, workload=WorkloadConfig(
+                    key_dist="zipfian", zipf_theta=0.99))
+    card_vs_cpu(pool, "ccheck", [
+        (f"{CONFLICT_CHECK} quick", CONFLICT_CHECK, None),
+        ("epaxos N=25 zipfian(0.99) 40 clients x 2 seeds", zipf, None)])
 
 
 # -------------------------------------------------------------- phase 22
@@ -1333,7 +1427,7 @@ def kernel_equals_plain_chunks(device):
                              f"run != the plain fan-in's ({differ}, {sm90})")
 
 
-def run_megagrid(device):
+def run_megagrid(device, pool):
     """Phase 22: the 4 slices, chunked == unchunked, the sm90 fan-in ==
     the plain one on whole chunks, then the study."""
     from repro_torch.experiments import megagrid, registry
@@ -1341,8 +1435,8 @@ def run_megagrid(device):
     slices = registry.select("megagrid")
     if len(slices) != 4:
         raise SystemExit(f"megagrid: {len(slices)} slices, expected 4")
-    launches = run_grids(device, slices, "megagrid", 1,
-                         gate_windows(MEGAGRID_WINDOWS))
+    launches = run_grids(pool, "megagrid", [(sc.name, False) for sc in slices],
+                         MEGAGRID_WINDOWS)[1]
     chunked_equals_unchunked(device)
     kernel_equals_plain_chunks(device)
     segfanin.launches = segfanin.launches_sm90 = 0
@@ -1406,6 +1500,43 @@ def check_jaxsim(device):
         f"relative {worst} (tolerance 1e-6)")
     if diff or worst > 1e-6:
         raise SystemExit(f"jaxsim: cuda and cpu differ ({diff}, {worst})")
+
+
+# -------------------------------------------------------------- phase 31
+def run_figures(pool):
+    """Phase 31: the 44 ``batch_ok`` discrete-event scenarios through
+    ``run_scenarios(..., backend_override="batch")`` on cuda, Fig. 8 at
+    N = 25 and Tables 1-2 at their full grids, the rest quick; their
+    report rows (the tables' asserts), Fig. 8's best R and the gate's
+    windows.  Returns the fan-in launches."""
+    from repro_torch.experiments import registry, report
+    names = [sc.name for sc in registry.select() if sc.backend == "des"]
+    if len(names) != 44:
+        raise SystemExit(f"{len(names)} batch_ok scenarios, expected 44")
+    grids = [(n, not n.startswith(FIGURES_FULL)) for n in names]
+    arts, total = run_grids(pool, "figures", grids, FIGURE_WINDOWS)
+    rows = []
+    for quick in (False, True):
+        rows += report.rows_for_artifact({"quick": quick, "scenarios": [
+            arts[n] for n, q in grids if q == quick]})
+    for row in rows:
+        log(f"figures  row {row}")
+    (summary,) = [r for r in rows if r.startswith("fig8/summary,")]
+    best = dict(re.findall(r"best_R_(\w+)=(\d+)", summary))
+    log(f"figures  fig8 best R: rotating {best['rotating']} (paper: 1), "
+        f"static {best['static']} (paper: ~sqrt(N) = 5)")
+    if best["rotating"] != "1":
+        raise SystemExit(f"fig8: best rotating R is {best['rotating']}, "
+                         f"not 1")
+    return total
+
+
+# -------------------------------------------------------------- phase 32
+def check_figures(pool):
+    """Phase 32: four quick override scenarios: card == rerun == the plain
+    fan-in's run on the card, bit for bit, extras included; card vs CPU
+    within phase 6's tolerance, or the cell's envelope (``FCHECK``)."""
+    card_vs_cpu(pool, "fcheck", [(n, n, env) for n, env in FCHECK.items()])
 
 
 # --------------------------------------------------------------- phase 2
@@ -3539,14 +3670,22 @@ def main() -> int:
     launches = phase("5 main", run_main_path, device)
     phase("5 trace", launches_per_step, device)
     phase("6 check", cross_check, device)
-    launches += phase("17 branches", run_branches, device)
-    phase("18 bcheck", check_branches, device)
-    efanin = phase("19 efanin", check_efanin, device)
-    conflict_launches = phase("20 conflict", run_conflict, device)
-    phase("21 ccheck", check_conflict, device)
-    mega_launches = phase("22 megagrid", run_megagrid, device)
-    phase("23 jaxsim", check_jaxsim, device)
-    launches += conflict_launches + mega_launches
+    # the batch phases' step loops are host-bound (the card idles ~90% of
+    # a step): their grids and check runs go to POOL_WORKERS processes on
+    # the one card, which drive it side by side
+    with multiprocessing.get_context("spawn").Pool(POOL_WORKERS) as pool:
+        launches += phase("17 branches", run_branches, pool)
+        phase("18 bcheck", check_branches, pool)
+        efanin = phase("19 efanin", check_efanin, device)
+        conflict_launches = phase("20 conflict", run_conflict, pool)
+        phase("21 ccheck", check_conflict, pool)
+        mega_launches = phase("22 megagrid", run_megagrid, device, pool)
+        phase("23 jaxsim", check_jaxsim, device)
+        figure_launches = phase("31 figures", run_figures, pool)
+        phase("32 fcheck", check_figures, pool)
+    fanin_paths = {"batch grids": launches, "conflict": conflict_launches,
+                   "megagrid": mega_launches, "figures": figure_launches}
+    launches = sum(fanin_paths.values())
 
     flash_err = phase("7 flash", check_flash, device)
     flash_timing = phase("8 timing", time_flash, device)
@@ -3629,7 +3768,8 @@ def main() -> int:
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",
               "replaces": "src/repro/kernels/segfanin.py:46",
-              "launches": launches, "max_abs_err": max(err, efanin[0]),
+              "launches": launches, "launches_by_path": fanin_paths,
+              "max_abs_err": max(err, efanin[0]),
               **timing, "epaxos_timing": efanin[1], "library_ms": None}
     flash = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",

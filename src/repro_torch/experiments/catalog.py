@@ -1,9 +1,15 @@
-"""The port's scenario catalog: the reference's 35 batch-backend
-scenarios (``repro.experiments.catalog``, ``backend="batch"``), copied
-with its specs and in its order: the EPaxos ``conflict`` grids, ``wan``,
-``scale``, ``avail``, ``batching``, ``obs``, the ``megagrid`` slices and
-``reads``.  Importing this module populates the registry."""
+"""The port's scenario catalog: the reference's (``repro.experiments.
+catalog``) 79 scenarios that the batch backend runs, copied with its specs
+and in its registration order: the 35 ``backend="batch"`` scenarios and
+the 44 discrete-event scenarios marked ``batch_ok``, which
+``runner.run_scenarios(..., backend_override="batch")`` switches to the
+batch backend (the reference's DES <-> batch cross-checks on identical
+grids): Tables 1-2, Fig. 8, ``zipf``, ``conflict``, ``wan``, ``scale``,
+``avail``, ``batching``, ``obs``, the ``megagrid`` slices and ``reads``.
+Importing this module populates the registry."""
 from __future__ import annotations
+
+import math
 
 from ..core.pig import PigConfig
 from ..core.workload import WorkloadConfig
@@ -11,13 +17,76 @@ from ..faults.plan import crash_window, slow_window
 from .registry import register
 from .scenario import Scenario
 
+# --------------------------------------------------------------- tables 1/2
+# Analytical message-load tables, validated against the measured per-node
+# message counts at representative R (the asserts live in report.py).
+for r in (1, 3):
+    register(Scenario(
+        name=f"table1/validate/R={r}", protocol="pigpaxos", n=25,
+        pig=PigConfig(n_groups=r), clients=(20,), seeds=(7,),
+        duration=1.0, warmup=0.2, quick_duration=0.4, backend="des",
+        batch_ok=True, collect=("per_node_msgs",)))
+
+for r in (1, 2):
+    register(Scenario(
+        name=f"table2/validate/R={r}", protocol="pigpaxos", n=5,
+        pig=PigConfig(n_groups=r), clients=(20,), seeds=(7,),
+        duration=1.0, warmup=0.2, quick_duration=0.4, backend="des",
+        batch_ok=True, collect=("per_node_msgs",)))
+
+# ------------------------------------------------------------------- fig 8
+# Max throughput vs number of relay groups, rotating vs static, 25 nodes.
+for rotate in (True, False):
+    for r in (1, 2, 3, 4, 5, 6, 8):
+        register(Scenario(
+            name=f"fig8/{'rotating' if rotate else 'static'}/R={r}",
+            protocol="pigpaxos", n=25,
+            pig=PigConfig(n_groups=r, prc=1, rotate_relays=rotate,
+                          single_group_majority=(r == 1 and rotate)),
+            clients=(20, 60, 120), quick_clients=(40, 120),
+            duration=1.0, quick_duration=0.4, warmup=0.25, backend="des",
+            batch_ok=True, quick_skip=(r in (4, 6, 8))))
+
+# Beyond the paper: the same relay-group sweep at N in {25, 49, 101}.
+for n in (25, 49, 101):
+    for r in sorted({3, int(round(math.sqrt(n)))}):
+        register(Scenario(
+            name=f"fig8/scale/N={n}/R={r}", protocol="pigpaxos", n=n,
+            pig=PigConfig(n_groups=r, prc=1), engine="fast",
+            clients=(60, 120), quick_clients=(60,),
+            duration=0.6, quick_duration=0.3, warmup=0.25, backend="des",
+            batch_ok=True))
+
+# Zipf-skewed PigPaxos at N=25, R=3: keys never route in Pig, so the batch
+# backend (which never samples keys) is flat across theta by construction.
+for theta in (0.6, 0.9, 0.99, 1.2):
+    register(Scenario(
+        name=f"zipf/pigpaxos/theta={theta}", protocol="pigpaxos", n=25,
+        pig=PigConfig(n_groups=3, prc=1),
+        workload=WorkloadConfig(key_dist="zipfian", zipf_theta=theta),
+        clients=(60,), seeds=(1, 2, 3),
+        duration=0.8, quick_duration=0.3, backend="des", batch_ok=True))
+register(Scenario(
+    name="zipf/pigpaxos/uniform", protocol="pigpaxos", n=25,
+    pig=PigConfig(n_groups=3, prc=1),
+    workload=WorkloadConfig(key_dist="uniform"),
+    clients=(60,), seeds=(1, 2, 3),
+    duration=0.8, quick_duration=0.3, backend="des", batch_ok=True))
+
 # the fig10 three-region WAN latencies (one-way ms)
 _WAN3_ONEWAY_MS = [[0.15, 31, 35], [31, 0.15, 11], [35, 11, 0.15]]
 
-# EPaxos conflict-rate sweeps on the batch backend (the conflict/slow-path
-# model): hot-key probability c drives the dependency/interference rate
-for n in (25, 49):
+# EPaxos conflict-rate sweeps: hot-key probability c drives the
+# dependency/interference rate.  Each (N, c) point has the reference's
+# discrete-event grid (batch_ok) and its batch-backend grid.
+for n, engine in ((25, "exact"), (49, "fast")):
     for c in (0.0, 0.02, 0.1, 0.5):
+        register(Scenario(
+            name=f"conflict/N={n}/c={c}", protocol="epaxos", n=n,
+            engine=engine, backend="des", batch_ok=True,
+            workload=WorkloadConfig(key_dist="conflict", conflict_rate=c),
+            clients=(40,), seeds=(1, 2, 3), quick_seeds=(1, 2),
+            duration=0.8, quick_duration=0.3))
         register(Scenario(
             name=f"conflict/N={n}/c={c}/batch", protocol="epaxos", n=n,
             backend="batch", batch_ok=True,
@@ -27,7 +96,7 @@ for n in (25, 49):
 
 
 # WAN at N in {25, 49, 101}: the three-region topology scaled up, with
-# per-region relay groups (paper §5.3).
+# per-region relay groups (paper §5.3), each size on both backends.
 def _wan_scaled(n: int):
     """N nodes over 3 regions (fig10 latencies), per-region groups."""
     per = [n - 2 * (n // 3), n // 3, n // 3]
@@ -40,14 +109,18 @@ def _wan_scaled(n: int):
 
 for n in (25, 49, 101):
     spec, groups = _wan_scaled(n)
-    register(Scenario(
-        name=f"wan/N={n}/batch", protocol="pigpaxos", n=n,
-        pig=PigConfig(n_groups=3, groups=groups, prc=1),
-        topo=spec, backend="batch", batch_ok=True,
-        leader_timeout=400e-3,
-        clients=(40, 120), quick_clients=(40,),
-        seeds=tuple(range(16)), quick_seeds=(0, 1, 2, 3),
-        duration=2.0, quick_duration=0.8, warmup=0.5))
+    for backend in ("des", "batch"):
+        register(Scenario(
+            name=f"wan/N={n}" + ("/batch" if backend == "batch" else ""),
+            protocol="pigpaxos", n=n,
+            pig=PigConfig(n_groups=3, groups=groups, prc=1),
+            topo=spec, engine="fast", backend=backend, batch_ok=True,
+            leader_timeout=400e-3,
+            clients=(40, 120), quick_clients=(40,),
+            seeds=(2, 3) if backend == "des" else tuple(range(16)),
+            quick_seeds=(2,) if backend == "des" else (0, 1, 2, 3),
+            duration=2.0, quick_duration=0.8, warmup=0.5,
+            quick_skip=(n == 101 and backend == "des")))
 
 # ======================================================================
 # Batch-backend headroom: grids the DES cannot touch (one call per
@@ -86,6 +159,17 @@ _AVAIL_PLANS = {
     # (the open-ended slow window is "throughout" under any duration)
     "relay": crash_window(1, 0.8, 1.2) + slow_window(2, extra_latency=2e-3),
 }
+for n in (25, 49):
+    for role, plan in _AVAIL_PLANS.items():
+        register(Scenario(
+            name=f"avail/{role}/N={n}", protocol="pigpaxos", n=n,
+            pig=PigConfig(n_groups=3, prc=1, use_gray_list=True),
+            workload=_AVAIL_WL, faults=plan, audit=True,
+            engine="exact" if n == 25 else "fast", backend="des",
+            grid_mode="curve", clients=(30,), seeds=(3,),
+            duration=2.2, warmup=0.3, quick_duration=1.2,
+            collect=("timeline",), batch_ok=True,
+            quick_skip=(n == 49)))
 for role, plan in _AVAIL_PLANS.items():
     register(Scenario(
         name=f"avail/{role}/N=25/batch", protocol="pigpaxos", n=25,

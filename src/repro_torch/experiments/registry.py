@@ -5,7 +5,7 @@ the whole family."""
 from __future__ import annotations
 
 from fnmatch import fnmatchcase
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 
 from .scenario import Scenario
 
@@ -19,17 +19,26 @@ def register(scenario: Scenario) -> Scenario:
     return scenario
 
 
+def get(name: str) -> Scenario:
+    _ensure_catalog()
+    return _REGISTRY[name]
+
+
 def names() -> List[str]:
     _ensure_catalog()
     return list(_REGISTRY)
 
 
-def select(filter_expr: Optional[str] = None) -> List[Scenario]:
-    """Scenarios matching a ``--filter`` expression; no filter -> all of
-    them, in registration order.  A pattern that matches nothing raises
-    ``ValueError``."""
+def select(filter_expr: Optional[str] = None,
+           families_subset: Optional[Iterable[str]] = None) -> List[Scenario]:
+    """Scenarios matching a ``--filter`` expression, optionally restricted
+    to a subset of families; no filter -> all of them, in registration
+    order.  A pattern that matches nothing raises ``ValueError``."""
     _ensure_catalog()
     out = list(_REGISTRY.values())
+    if families_subset is not None:
+        fams = set(families_subset)
+        out = [s for s in out if s.family in fams]
     if filter_expr:
         pats = [p.strip() for p in filter_expr.split(",") if p.strip()]
         matched = {p: [s for s in out

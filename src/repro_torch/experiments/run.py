@@ -1,11 +1,18 @@
 """Command line for the port's scenarios.
 
     python -m repro_torch.experiments.run --filter 'scale/batch/*' \\
-        [--full] [--device cpu] --json PATH
+        [--full] [--device cpu] [--backend batch] [--rows] --json PATH
 
 Runs the selected scenarios on the batch backend (CUDA by default) and
 writes the ``repro-experiments/v1`` artifact, which
 ``benchmarks/regression_gate.py`` reads as it reads the reference's.
+``--backend batch`` switches the ``batch_ok`` discrete-event scenarios to
+the batch backend (the paper's Fig. 8 and Tables 1-2 among them);
+``--rows`` prints the report's ``name,us_per_call,derived`` rows after the
+table, e.g.
+
+    python -m repro_torch.experiments.run --filter fig8,table1,table2 \\
+        --backend batch --full --rows
 """
 from __future__ import annotations
 
@@ -13,7 +20,7 @@ import argparse
 import json
 import sys
 
-from . import registry, runner
+from . import registry, report, runner
 
 
 def main(argv=None) -> int:
@@ -26,11 +33,17 @@ def main(argv=None) -> int:
                     help="full-mode grids and windows (default: quick)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
+    ap.add_argument("--backend", default=None,
+                    help="backend override: 'batch' runs the batch_ok "
+                         "discrete-event scenarios on the batch backend")
+    ap.add_argument("--rows", action="store_true",
+                    help="print the report rows of the artifact")
     ap.add_argument("--json", default=None, help="write the artifact here")
     args = ap.parse_args(argv)
     art = runner.run_scenarios(registry.select(args.filter),
                                quick=not args.full,
                                ignore_quick_skip=bool(args.filter),
+                               backend_override=args.backend,
                                device=args.device)
     print(f"{'scenario':36s} {'cells':>5s} {'tput_mean':>10s} "
           f"{'median_ms':>9s} {'p99_ms':>8s} {'wall_s':>7s} device")
@@ -40,6 +53,9 @@ def main(argv=None) -> int:
               f"{s['throughput']['mean']:10.1f} {s['median_ms']['mean']:9.4f} "
               f"{s['p99_ms']['mean']:8.4f} {run['wall_s']:7.2f} "
               f"{run['device']}")
+    if args.rows:
+        for row in report.rows_for_artifact(art):
+            print(row)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(art, f, indent=1)

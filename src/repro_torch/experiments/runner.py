@@ -1,4 +1,4 @@
-"""Scenario runner for the port (batch backend only).
+"""Scenario runner for the port (the batch backend).
 
 Every run emits the reference's artifact schema
 (``repro.experiments.runner``, ``ARTIFACT_SCHEMA``), so the unchanged
@@ -22,12 +22,18 @@ loads (``collect=("per_node_msgs",)``), the completion ``timeline`` (fault
 plans), the leader-backlog series ``obs`` and the read/write split ``rw``
 (leased reads); a fault-plan unit has ``consistency="model"``.
 
+``backend_override="batch"`` switches every ``batch_ok`` scenario to the
+batch backend, as the reference's does; the port has no discrete-event
+engine, so a scenario still on ``"des"`` after that step raises, and so
+does ``backend_override="des"``.
+
 ``run`` is the port's addition: the device the grid ran on, the scan
 steps it took and the fan-in kernel launches they made (one a scan step
 for the group kernel, two for EPaxos; none on the CPU).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from typing import Dict, List, Optional, Sequence
@@ -151,16 +157,49 @@ def _scenario_artifact(sc: Scenario, units: List[dict], quick: bool) -> dict:
     return art
 
 
+def _override(active: List[Scenario],
+              backend_override: Optional[str]) -> List[Scenario]:
+    """The reference's backend override: ``"batch"`` switches every
+    ``batch_ok`` scenario to the batch backend, keeping ``per_node_msgs``
+    always and ``timeline`` when a fault plan rides along.  A scenario
+    left on ``"des"`` raises: nothing is skipped silently."""
+    if backend_override == "batch":
+        active = [dataclasses.replace(sc, backend="batch", collect=tuple(
+            c for c in sc.collect
+            if c == "per_node_msgs"
+            or (c == "timeline" and sc.fault_plan() is not None)))
+            if sc.batch_ok else sc for sc in active]
+    elif backend_override == "des":
+        raise ValueError("backend_override='des': repro_torch has no "
+                         "discrete-event engine, only the batch backend")
+    elif backend_override is not None:
+        raise ValueError(f"unknown backend override {backend_override!r}")
+    des = [sc.name for sc in active if sc.backend != "batch"]
+    if des:
+        raise ValueError(
+            f"scenario(s) {', '.join(des)} need the discrete-event engine, "
+            f"which repro_torch does not have: run them with "
+            f"backend_override='batch'")
+    return active
+
+
 def run_scenarios(scenarios: Sequence[Scenario], quick: bool = True,
-                  ignore_quick_skip: bool = False, device=None) -> dict:
+                  ignore_quick_skip: bool = False,
+                  backend_override: Optional[str] = None,
+                  device=None) -> dict:
     """Run a suite of scenarios on ``device`` (CUDA unless the caller
     passes "cpu"); return the suite artifact.  Each scenario's whole
     clients x seeds grid runs as one batch.
 
     ``ignore_quick_skip``: run ``quick_skip`` scenarios anyway — set when
-    the caller selected scenarios explicitly (``--filter``)."""
+    the caller selected scenarios explicitly (``--filter``).
+
+    ``backend_override="batch"`` switches every ``batch_ok`` scenario to
+    the batch backend (the reference's DES <-> batch cross-checks on
+    identical grids); the artifact records the switched spec."""
     active = [sc for sc in scenarios
               if ignore_quick_skip or not (quick and sc.quick_skip)]
+    active = _override(active, backend_override)
     t0 = time.time()
     arts = []
     for sc in active:
@@ -172,3 +211,16 @@ def run_scenarios(scenarios: Sequence[Scenario], quick: bool = True,
         arts.append(art)
     return {"schema": ARTIFACT_SCHEMA, "quick": quick, "processes": 0,
             "wall_s": round(time.time() - t0, 3), "scenarios": arts}
+
+
+def run_families(families: Sequence[str], quick: bool = True,
+                 filter_expr: Optional[str] = None,
+                 backend_override: Optional[str] = None,
+                 device=None) -> dict:
+    """``run_scenarios`` over the registry's scenarios of ``families``
+    (narrowed by ``filter_expr``, which also runs ``quick_skip`` ones)."""
+    from . import registry
+    return run_scenarios(registry.select(filter_expr,
+                                         families_subset=families),
+                         quick=quick, ignore_quick_skip=bool(filter_expr),
+                         backend_override=backend_override, device=device)

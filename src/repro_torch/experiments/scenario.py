@@ -1,11 +1,17 @@
-"""Declarative experiment specs, the batch-path subset of
-``repro.experiments.scenario.Scenario``: the fields the batch runner
-reads, ``fault_plan``, ``resolve`` and ``spec_dict``, and the reference's
-registration-time checks of the batch path, word for word.  The
-discrete-event engines are not ported, so every scenario here runs on the
-batch backend, and the fields only they read (engine, audit, spare nodes,
-failover, admission, pipelining) are not copied; nor is the check of the
-``obs`` knobs' values, which configure the discrete-event tracer."""
+"""Declarative experiment specs (port of
+``repro.experiments.scenario.Scenario``): every field of the reference's
+spec, in its order, so ``spec_dict`` records the same keys, and its
+registration-time checks, word for word, except the check of the ``obs``
+knobs' values, which configure the discrete-event tracer.
+
+The port has no discrete-event engine.  A scenario may still name
+``backend="des"`` when it is ``batch_ok``: the runner's
+``backend_override="batch"`` switches it to the batch backend, as the
+reference's does, and the batch checks run again on the switched spec.
+Every other ``"des"`` scenario is refused here.  The fields only the
+discrete-event engines read (``audit``, ``engine``, ``spare_nodes``,
+``failover``, ``pipeline_depth``, ``admission``) are recorded and
+ignored, as the reference's batch backend ignores them."""
 from __future__ import annotations
 
 import dataclasses
@@ -26,10 +32,10 @@ FailureEvent = Tuple
 
 @dataclass(frozen=True)
 class Scenario:
-    """One declarative batch-backend experiment, as data."""
+    """One declarative experiment, as data."""
 
     name: str                                # "<family>/<config...>" path
-    protocol: str                            # "paxos" | "pigpaxos"
+    protocol: str                            # "paxos" | "pigpaxos" | "epaxos"
     n: int
     pig: Optional[PigConfig] = None
     workload: Optional[WorkloadConfig] = None
@@ -41,28 +47,45 @@ class Scenario:
     # crash/recover windows and whole-run slow nodes), merged with
     # ``failures`` by fault_plan()
     faults: Optional[FaultPlan] = None
-    clients: Tuple[int, ...] = (60,)         # offered-load grid (client counts)
+    # the reference's linearizability audit of discrete-event units
+    # (batch units carry consistency="model" instead)
+    audit: bool = False
+    clients: Tuple[int, ...] = (60,)         # offered-load grid (clients)
     # "max"   — per seed, keep the best throughput over the client grid
     # "curve" — report every grid point
     grid_mode: str = "max"
     seeds: Tuple[int, ...] = (2,)
     duration: float = 0.6
     warmup: float = 0.3
+    engine: str = "exact"                    # the reference's DES engine
+    # "batch" — the whole clients x seeds grid is one batch-backend run
+    # (the port's default; the reference's is "des");
+    # "des" — the reference's discrete-event engines (batch_ok only here)
     backend: str = "batch"
+    # marks scenarios whose model assumptions the batch backend satisfies:
+    # the runner switches these to "batch" via backend_override
     batch_ok: bool = False
     leader_timeout: float = 50e-3
+    # spare nodes for membership events (DES only)
+    spare_nodes: int = 0
+    # failover policy kwargs (DES only)
+    failover: Optional[dict] = None
     # leader-side batching kwargs ({"max_batch": m, "max_delay_ms": ms}):
     # max_batch maps to vectorsim's batch_m (the saturated-batch model, so
     # max_delay_ms is ignored and clients must divide by max_batch)
     batch: Optional[dict] = None
+    # bound on uncommitted proposals in flight (DES only; 0 = unbounded)
+    pipeline_depth: int = 0
     # leader-lease kwargs ({"duration_ms": d, "renew_ms": r, "drift_bound":
     # b, "lease_safety": True}), required for read_path="lease"; the batch
     # backend models an uncontested lease held for the whole run
     lease: Optional[dict] = None
+    # admission-control kwargs (DES only)
+    admission: Optional[dict] = None
     # observability kwargs: the batch backend emits the leader-backlog
     # series when set
     obs: Optional[dict] = None
-    # extras: "per_node_msgs" | "timeline" (fault runs)
+    # extras: "per_node_msgs" | "timeline" (fault runs) | "flight" (DES)
     collect: Tuple[str, ...] = ()
     # quick-mode overrides (None -> use the full-mode value / skip nothing)
     quick_clients: Optional[Tuple[int, ...]] = None
@@ -72,49 +95,89 @@ class Scenario:
     quick_skip: bool = False                 # drop entirely in quick mode
 
     def __post_init__(self):
-        if self.backend != "batch":
-            raise NotImplementedError(
-                "repro_torch ports the batch backend only; the discrete-"
-                "event engines (backend='des') stay in repro")
+        if self.backend not in ("des", "batch"):
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.backend == "des" and not self.batch_ok:
+            raise ValueError(
+                f"scenario {self.name!r} needs the discrete-event engine "
+                f"(backend='des', not batch_ok): repro_torch has no DES, "
+                f"only the batch backend")
         for ev in self.failures:
             validate_event(tuple(ev))
         plan = self.fault_plan()
         if plan is not None:
-            plan.validate_targets(self.n, self.horizon)
+            # membership events may target spares (ids n..n+spare_nodes-1)
+            plan.validate_targets(self.n + self.spare_nodes, self.horizon)
+        if self.spare_nodes and self.backend == "batch":
+            raise ValueError(
+                "batch backend does not support spare_nodes: membership "
+                "change needs a time-varying replica set — use the DES")
+        if self.failover is not None and self.backend == "batch":
+            raise ValueError(
+                "batch backend does not support failover policies — "
+                "use the DES")
+        if self.admission is not None and self.backend == "batch":
+            raise ValueError(
+                "batch backend does not support admission control — "
+                "use the DES")
+        if self.pipeline_depth < 0:
+            raise ValueError("pipeline_depth must be >= 0")
+        if self.pipeline_depth and self.backend == "batch":
+            raise ValueError(
+                "batch backend pipelines implicitly (Lindley-chain leader "
+                "FIFO == unbounded depth); finite pipeline_depth needs the "
+                "DES")
         if self.batch is not None:
             m = self.batch.get("max_batch", 1)
             if m < 1:
                 raise ValueError("batch.max_batch must be >= 1")
-            if self.protocol == "epaxos":
-                raise ValueError("batch-backend batching is group-kernel "
-                                 "only — batched EPaxos runs are DES-"
-                                 "authoritative")
-            bad = [k for k in self.clients if k % m]
-            if bad:
-                raise ValueError(
-                    f"batch backend requires client counts divisible by "
-                    f"max_batch={m}; offending grid points: {bad}")
-        if self.obs is not None and self.protocol == "epaxos":
-            raise ValueError("batch-backend observability is group-"
-                             "kernel only (single-leader backlog "
-                             "series) — traced EPaxos runs need the "
-                             "DES")
+            if self.backend == "batch":
+                if self.protocol == "epaxos":
+                    raise ValueError("batch-backend batching is group-kernel "
+                                     "only — batched EPaxos runs are DES-"
+                                     "authoritative")
+                bad = [k for k in self.clients if k % m]
+                if bad:
+                    raise ValueError(
+                        f"batch backend requires client counts divisible by "
+                        f"max_batch={m}; offending grid points: {bad}")
+        if (self.batch is not None or self.pipeline_depth) \
+                and self.engine == "ref":
+            raise ValueError("batching/pipelining is not supported by the "
+                             "verbatim seed stack (engine='ref')")
+        if self.obs is not None:
+            if self.engine == "ref":
+                raise ValueError("observability is not supported by the "
+                                 "verbatim seed stack (engine='ref')")
+            if self.backend == "batch" and self.protocol == "epaxos":
+                raise ValueError("batch-backend observability is group-"
+                                 "kernel only (single-leader backlog "
+                                 "series) — traced EPaxos runs need the "
+                                 "DES")
         rr = (self.workload.read_ratio
               if self.workload is not None else None)
         rpath = (self.workload.read_path
                  if self.workload is not None else "log")
+        if rr is not None and rr > 0.0 and self.engine == "ref":
+            raise ValueError(
+                "read_ratio workloads are not supported by the verbatim "
+                "seed stack (engine='ref'): the seed client has no read "
+                "op kind — use engine='exact' or 'fast'")
         if self.lease is not None:
             _check_lease(**self.lease)
             if self.protocol == "epaxos":
                 raise ValueError(
                     "leases are leader-granted; epaxos is leaderless — "
                     "epaxos read scenarios use read_path='quorum'")
+            if self.engine == "ref":
+                raise ValueError("leases are not supported by the verbatim "
+                                 "seed stack (engine='ref')")
         if rpath == "lease" and rr is not None and rr > 0.0 \
                 and self.lease is None:
             raise ValueError(
                 "read_path='lease' requires lease= (no granted lease, no "
                 "local leader reads — set e.g. lease={'duration_ms': 200})")
-        if rr is not None and rr > 0.0:
+        if self.backend == "batch" and rr is not None and rr > 0.0:
             if rpath == "quorum":
                 raise ValueError(
                     "batch backend models log and leased leader reads "
@@ -131,20 +194,21 @@ class Scenario:
                         "batch leased reads with leader batching are "
                         "DES-authoritative (reads bypass the batch "
                         "buffer)")
-        ok_collect = {"per_node_msgs"}
-        if plan is not None:
-            ok_collect.add("timeline")   # fault runs emit timelines
-        bad = [c for c in self.collect if c not in ok_collect]
-        if bad:
-            raise ValueError(f"batch backend does not support "
-                             f"{bad} collection — use the DES")
-        if plan is not None and not plan.mask_expressible(self.horizon):
-            raise ValueError(
-                "batch backend supports only mask-expressible fault "
-                "plans (crash/recover windows + whole-run slow nodes) "
-                "— use the DES for this plan")
-        if plan is not None and self.protocol == "epaxos":
-            raise ValueError("batch EPaxos does not support faults")
+        if self.backend == "batch":
+            ok_collect = {"per_node_msgs"}
+            if plan is not None:
+                ok_collect.add("timeline")   # fault runs emit timelines
+            bad = [c for c in self.collect if c not in ok_collect]
+            if bad:
+                raise ValueError(f"batch backend does not support "
+                                 f"{bad} collection — use the DES")
+            if plan is not None and not plan.mask_expressible(self.horizon):
+                raise ValueError(
+                    "batch backend supports only mask-expressible fault "
+                    "plans (crash/recover windows + whole-run slow nodes) "
+                    "— use the DES for this plan")
+            if plan is not None and self.protocol == "epaxos":
+                raise ValueError("batch EPaxos does not support faults")
 
     @property
     def family(self) -> str:

@@ -55,7 +55,7 @@ def trace_scenario(sc, quick: bool, device) -> dict:
     def once():
         t0 = time.perf_counter()
         art = runner.run_scenarios([sc], quick=quick, ignore_quick_skip=True,
-                                   device=dev)
+                                   backend_override="batch", device=dev)
         if cuda:
             torch.cuda.synchronize(dev)
         return art["scenarios"][0]["run"], time.perf_counter() - t0
