@@ -115,6 +115,18 @@ Phases, in order; any failure exits non-zero:
              extras included; card vs CPU within phase 6's tolerance, or
              the cell's envelope (``FCHECK``: a static relay's latency
              envelope, a chaotic cell's tolerance).
+33. gate  - (run after phase 32) the regression gate on the port: the
+             discrete-event halves of ``reference_bounds.json``'s 8
+             ``fidelity`` pairs and the bases of its 3 ``speedup`` floors
+             (``reads/pigpaxos/{lease,log}/r=0.9`` besides) quick through
+             ``run_scenarios`` on the host, one scenario a pool worker,
+             and the pairs' ``/batch`` halves quick on cuda
+             (``launches_sm90 == scan_steps``, EPaxos 2 x): each batch/DES
+             throughput ratio inside its window, each speedup floor on
+             the DES halves, the quick ``bounds`` window of every
+             scenario the phase runs, no audited unit in violation; the
+             DES half of ``wan/N=25`` run again, bit for bit; per DES
+             scenario its units, events, wall and events/s.
 7. flash   - the sm90 flash_attention kernel against its plain version on
              the card in bf16 at granite-8b's prefill shape, granite at its
              max_seq_len, a ragged S, gemma-7b's head dim 256 and a
@@ -274,7 +286,7 @@ Phases, in order; any failure exits non-zero:
              fake world of 256 ranks cannot share a process with NCCL),
              its JSON fields and H100 roofline terms printed.
 
-The batch phases (17-22, 31-32) run their grids and their check runs in
+The batch phases (17-22, 31-33) run their grids and their check runs in
 ``POOL_WORKERS`` spawned processes that drive the one card side by side
 (the step loops are host-bound), the costliest first; each worker sets
 the fan-in counts to 0 before its run and reads them after.
@@ -339,7 +351,7 @@ PLAIN_CHUNKS = (("group", 8, 4, "lan"), ("group", 16, 16, "wan3"),
 # counts within one request at the window edges, latency percentiles to
 # rel 1e-5, message loads to abs 1e-6
 COUNT_SLACK, LAT_REL, MSG_ABS = 1, 1e-5, 1e-6
-# the batch phases (17-22, 31-32) run their grids and check runs in this
+# the batch phases (17-22, 31-33) run their grids and check runs in this
 # many processes on the one card: alone or four side by side, a
 # scenario's wall is the same within the host's spread (on an H100 80GB
 # HBM3 host with 8 cores, four processes ran 8 Fig. 8 and avail grids
@@ -360,6 +372,8 @@ FIGURE_WINDOWS = ("fig8/rotating/R=1", "table1/validate/R=1",
 FCHECK = {"avail/relay/N=49": "chaotic", "fig8/static/R=1": "static",
           "table2/validate/R=2": "chaotic", "fig8/scale/N=101/R=10": None}
 STATIC_LAT_REL = 5e-5
+# phase 33: the DES half run again, bit for bit
+GATE_RERUN = "wan/N=25"
 CHAOTIC_COUNT_REL, CHAOTIC_LAT_REL = 5e-3, 3e-2
 CHAOTIC_MSG_ABS, CHAOTIC_TIMELINE_REL = 1e-3, 5e-2
 # flash_attention against its plain version in bf16: both compute in f32
@@ -1510,7 +1524,8 @@ def run_figures(pool):
     report rows (the tables' asserts), Fig. 8's best R and the gate's
     windows.  Returns the fan-in launches."""
     from repro_torch.experiments import registry, report
-    names = [sc.name for sc in registry.select() if sc.backend == "des"]
+    names = [sc.name for sc in registry.select()
+             if sc.backend == "des" and sc.batch_ok]
     if len(names) != 44:
         raise SystemExit(f"{len(names)} batch_ok scenarios, expected 44")
     grids = [(n, not n.startswith(FIGURES_FULL)) for n in names]
@@ -1537,6 +1552,131 @@ def check_figures(pool):
     fan-in's run on the card, bit for bit, extras included; card vs CPU
     within phase 6's tolerance, or the cell's envelope (``FCHECK``)."""
     card_vs_cpu(pool, "fcheck", [(n, n, env) for n, env in FCHECK.items()])
+
+
+# -------------------------------------------------------------- phase 33
+def des_run(name):
+    """Pool worker: one registered discrete-event scenario, quick, through
+    ``run_scenarios`` on the host (no device).  Returns its artifact and
+    the call's wall."""
+    from repro_torch.experiments import registry, runner
+    t0 = time.perf_counter()
+    art = runner.run_scenarios([registry.get(name)], quick=True,
+                               ignore_quick_skip=True)
+    return art["scenarios"][0], time.perf_counter() - t0
+
+
+def des_cost(name):
+    """A discrete-event scenario's quick units' cost, as the runner's pool
+    orders them (virtual seconds x N x clients, EPaxos 4 x)."""
+    from repro_torch.experiments import registry, runner
+    sc = registry.get(name)
+    rs = sc.resolve(True)
+    return sum(runner._unit_cost_estimate((sc, k, s, rs.duration,
+                                           rs.warmup))
+               for k, s in rs.units())
+
+
+def host_cpu():
+    """The host CPU's model, as ``lscpu`` or ``/proc/cpuinfo`` name it."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        names = [line.split(":", 1)[1].strip() for line in out.splitlines()
+                 if line.startswith(("Model name", "Vendor ID"))]
+    except (OSError, subprocess.SubprocessError):
+        names = []
+    if not names:
+        with open("/proc/cpuinfo") as f:
+            names = [line.split(":", 1)[1].strip() for line in f
+                     if line.startswith("model name")][:1]
+    return " / ".join(names) or "unknown"
+
+
+def bare(sa):
+    """A scenario artifact without its walls, for a rerun's comparison."""
+    sa = json.loads(json.dumps(sa))
+    sa["run"].pop("wall_s")
+    sa["summary"].pop("wall_s")
+    for u in sa["units"] + sa["replicates"]:
+        u.pop("wall_s")
+    return sa
+
+
+def run_gate(pool):
+    """Phase 33: the gate's fidelity pairs and speedup floors on the port,
+    the DES halves on the host and the batch halves on the card.  Returns
+    the fan-in launches."""
+    with open(os.path.join(ROOT, "benchmarks", "reference_bounds.json")) as f:
+        ref = json.load(f)
+    fidelity, speedup, bounds = ref["fidelity"], ref["speedup"], ref["bounds"]
+    des = list(fidelity)
+    for name, spec in speedup.items():
+        des += [n for n in (name, spec["over"]) if n not in des]
+    if len(fidelity) != 8 or len(speedup) != 3 or len(des) != 10:
+        raise SystemExit(f"gate: {len(fidelity)} fidelity pairs, "
+                         f"{len(speedup)} speedup floors, {len(des)} DES "
+                         f"scenarios; expected 8, 3, 10")
+    # the DES halves and the rerun go to the pool first (host only), the
+    # costliest first; the batch halves follow through run_grids
+    tasks = des + [GATE_RERUN]
+    order = sorted(range(len(tasks)), key=lambda i: -des_cost(tasks[i]))
+    jobs = {i: pool.apply_async(des_run, (tasks[i],)) for i in order}
+    windows = [n + "/batch" for n in fidelity if n + "/batch" in bounds]
+    batch, launches = run_grids(pool, "gate", [(n + "/batch", True)
+                                               for n in fidelity], windows)
+    got = [jobs[i].get() for i in range(len(tasks))]
+    arts = {n: sa for n, (sa, _) in zip(des, got)}
+    events = walls = 0
+    for name, (sa, wall) in zip(des, got):
+        run = sa["run"]
+        events += run["events"]
+        walls += run["wall_s"]
+        bad = [u for u in sa["units"] if u.get("consistency") == "violation"]
+        log(f"gate     {name:32s} des quick units={run['cells']} "
+            f"events={run['events']} wall={run['wall_s']:.3f}s "
+            f"({wall:.3f}s in the worker) events/s="
+            f"{run['events'] / run['wall_s']:.0f} tput_mean="
+            f"{sa['summary']['throughput']['mean']} consistency="
+            f"{sa['consistency']}")
+        if sa["backend"] != "des" or run["device"] != "host":
+            raise SystemExit(f"{name}: not a discrete-event run: "
+                             f"{sa['backend']}, {run['device']}")
+        if bad:
+            raise SystemExit(f"{name}: {len(bad)} unit(s) failed the "
+                             f"linearizability audit")
+    log(f"gate     DES halves: {events} events in {walls:.3f} s of unit "
+        f"walls, {events / walls:.0f} events/s a worker; host CPU "
+        f"{host_cpu()}, {os.cpu_count()} cores")
+    again = got[-1][0]
+    if bare(again) != bare(arts[GATE_RERUN]):
+        raise SystemExit(f"{GATE_RERUN}: the DES rerun differs")
+    log(f"gate     {GATE_RERUN} DES rerun bit for bit: True")
+    for name, (lo, hi) in sorted(fidelity.items()):
+        ratio = (batch[name + "/batch"]["summary"]["throughput"]["mean"]
+                 / arts[name]["summary"]["throughput"]["mean"])
+        log(f"gate     {name:32s} batch/des {ratio:.6f} in [{lo}, {hi}]: "
+            f"{lo <= ratio <= hi}")
+        if not lo <= ratio <= hi:
+            raise SystemExit(f"{name}: batch/des throughput ratio {ratio} "
+                             f"outside [{lo}, {hi}]")
+    for name, spec in sorted(speedup.items()):
+        ratio = (arts[name]["summary"]["throughput"]["mean"]
+                 / arts[spec["over"]]["summary"]["throughput"]["mean"])
+        log(f"gate     {name:32s} over {spec['over']} {ratio:.6f}x "
+            f"(floor {spec['min']}x): {ratio >= spec['min']}")
+        if ratio < spec["min"]:
+            raise SystemExit(f"{name}: {ratio}x {spec['over']}, under the "
+                             f"{spec['min']}x floor")
+    for name in [n for n in des if n in bounds]:
+        lo, hi = bounds[name]
+        mean = arts[name]["summary"]["throughput"]["mean"]
+        log(f"gate     {name} quick mean throughput {mean} "
+            f"{'inside' if lo <= mean <= hi else 'OUTSIDE'} [{lo}, {hi}]")
+        if not lo <= mean <= hi:
+            raise SystemExit(f"{name}: quick mean throughput {mean} outside "
+                             f"[{lo}, {hi}]")
+    return launches
 
 
 # --------------------------------------------------------------- phase 2
@@ -3683,8 +3823,10 @@ def main() -> int:
         phase("23 jaxsim", check_jaxsim, device)
         figure_launches = phase("31 figures", run_figures, pool)
         phase("32 fcheck", check_figures, pool)
+        gate_launches = phase("33 gate", run_gate, pool)
     fanin_paths = {"batch grids": launches, "conflict": conflict_launches,
-                   "megagrid": mega_launches, "figures": figure_launches}
+                   "megagrid": mega_launches, "figures": figure_launches,
+                   "gate": gate_launches}
     launches = sum(fanin_paths.values())
 
     flash_err = phase("7 flash", check_flash, device)

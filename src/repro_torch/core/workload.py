@@ -1,11 +1,11 @@
 """The workload shape (copied from ``repro.core.cluster.WorkloadConfig``),
 with all of its fields, defaults and checks: a scenario records every
-field in its spec.  The batch backend reads the payload sizes, the write
-or read fraction, ``read_path``, ``arrival`` and, for EPaxos, the key
-distribution (``n_keys``, ``key_dist``, ``zipf_theta``,
-``conflict_rate``); the rest drive the discrete-event clients, which are
-not ported.  ``zipf_cdf`` is the reference's key CDF
-(``repro.core.cluster.zipf_cdf``)."""
+field in its spec.  The discrete-event clients (``core/cluster.py``) read
+every field; the batch backend reads the payload sizes, the write or read
+fraction, ``read_path``, ``arrival`` and, for EPaxos, the key distribution
+(``n_keys``, ``key_dist``, ``zipf_theta``, ``conflict_rate``).
+``zipf_cdf`` is the reference's key CDF (``repro.core.cluster.zipf_cdf``),
+cached as the reference caches it."""
 from __future__ import annotations
 
 from dataclasses import dataclass

@@ -21,12 +21,24 @@ def register(scenario: Scenario) -> Scenario:
 
 def get(name: str) -> Scenario:
     _ensure_catalog()
+    if name not in _REGISTRY and name in _not_ported():
+        raise KeyError(f"scenario {name!r} needs what repro_torch has not "
+                       f"ported yet (ROADMAP item 13b)")
     return _REGISTRY[name]
 
 
 def names() -> List[str]:
     _ensure_catalog()
     return list(_REGISTRY)
+
+
+def families() -> List[str]:
+    _ensure_catalog()
+    seen: List[str] = []
+    for s in _REGISTRY.values():
+        if s.family not in seen:
+            seen.append(s.family)
+    return seen
 
 
 def select(filter_expr: Optional[str] = None,
@@ -46,11 +58,21 @@ def select(filter_expr: Optional[str] = None,
                    for p in pats}
         dead = [p for p, ss in matched.items() if not ss]
         if dead:
+            pending = [p for p in dead if any(
+                fnmatchcase(n, p) or n.split("/", 1)[0] == p
+                for n in _not_ported())]
+            why = (f" ({', '.join(pending)} only names scenarios that need "
+                   f"ROADMAP item 13b, not ported yet)" if pending else "")
             raise ValueError(f"--filter pattern(s) matched no scenario: "
-                             f"{', '.join(dead)}")
+                             f"{', '.join(dead)}{why}")
         keep = {x.name for ss in matched.values() for x in ss}
         out = [s for s in out if s.name in keep]
     return out
+
+
+def _not_ported() -> tuple:
+    from .catalog import NOT_PORTED
+    return NOT_PORTED
 
 
 def _ensure_catalog() -> None:

@@ -2,23 +2,23 @@
 
 Maps the runner's JSON artifact onto the reference's
 ``name,us_per_call,derived`` CSV rows, with each family's paper-claim
-summary (best-R comparison, analytical-table validation, DES <-> batch
-cross-checks where both backends ran, ...): the summarizers of the 12
-families the port runs.  The 16 of the discrete-event-only families
-(``fig9``-``fig17``, ``openloop``, ``overload``, ``storm``, ``reconfig``,
-``rolling``, ``failover``, ``lease``) are not ported.
-
-Every summarizer degrades gracefully when ``--filter`` removed part of its
-family: rows are emitted for whatever scenarios ran, and cross-scenario
-summary rows are skipped when their inputs are missing.
+summary (best-R comparison, saturation ratios, analytical-table
+validation, failure-transient drop, DES <-> batch cross-checks where both
+backends ran, ...): the summarizers of the 26 families the port runs.
+The reference's ``failover`` and ``lease`` summarizers come with ROADMAP
+item 13b; ``overload``'s gives the reference's rows for the scenarios
+the port registers, those without admission control.
 """
 from __future__ import annotations
 
+import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 from ..core import analytical
+from ..core.jaxsim import saturation_point
 from ..core.messages import CostModel
-from . import runner
+from . import registry, runner
 
 
 def csv_row(name: str, wall_s: float, calls: int, derived: str) -> str:
@@ -131,6 +131,201 @@ def _fig8(arts, quick):
 
 
 # ----------------------------------------------------- post-paper families
+# ------------------------------------------------------------------- fig 9
+def _fig9(arts, quick):
+    out = []
+    sat = {}
+    for name, art in arts.items():
+        proto = name.split("/")[1]
+        def fmt(p, us, wall, count, proto=proto):
+            return csv_row(f"fig9/{proto}/clients={p['clients']}", wall, count,
+                           f"tput={ms(p['throughput']['mean']):.0f}req/s "
+                           f"median={ms(p['median_ms']['mean']):.2f}ms "
+                           f"p99={ms(p['p99_ms']['mean']):.2f}ms")
+        out.extend(_point_rows(art, fmt))
+        sat[proto] = _sat(art)
+    if {"paxos", "epaxos", "pigpaxos"} <= set(sat):
+        ratio = sat["pigpaxos"] / max(sat["paxos"], 1)
+        model = f"{saturation_point(25, 24, protocol='paxos'):.0f}"
+        out.append(csv_row(
+            "fig9/summary", 0, 1,
+            f"paxos={sat['paxos']:.0f} epaxos={sat['epaxos']:.0f} "
+            f"pigpaxos={sat['pigpaxos']:.0f} pig/paxos={ratio:.1f}x "
+            f"(paper >3x); queueing-model paxos={model}"))
+    return out
+
+
+# ------------------------------------------------------------------ fig 10
+def _fig10(arts, quick):
+    out = []
+    for name, art in arts.items():
+        proto = name.split("/")[1]
+        def fmt(p, us, wall, count, proto=proto):
+            return csv_row(f"fig10/{proto}/clients={p['clients']}", wall, count,
+                           f"tput={ms(p['throughput']['mean']):.0f}req/s "
+                           f"median={ms(p['median_ms']['mean']):.1f}ms")
+        out.extend(_point_rows(art, fmt))
+    return out
+
+
+# ------------------------------------------------------------- figs 11/12
+def _bar_family(arts, family, summary):
+    out = []
+    res = {}
+    for name, art in arts.items():
+        rep = _rep(art)
+        if rep is None:
+            continue
+        res[name.split("/")[1]] = rep["throughput"]
+        out.append(csv_row(name, _wall(art), rep["count"],
+                           f"tput={rep['throughput']:.0f}req/s "
+                           f"median={ms(rep['median_ms']):.2f}ms"))
+    s = summary(res)
+    if s:
+        out.append(csv_row(f"{family}/summary", 0, 1, s))
+    return out
+
+
+def _fig11(arts, quick):
+    def summary(res):
+        if "pig_R1" not in res or len(res) < 4:
+            return None
+        return (f"R1_beats_all={res['pig_R1'] >= max(res.values()) - 1} "
+                f"(paper: R=1 outperforms all at N=5)")
+    return _bar_family(arts, "fig11", summary)
+
+
+def _fig12(arts, quick):
+    def summary(res):
+        if "pig_R2" not in res or "paxos" not in res:
+            return None
+        gain = (res["pig_R2"] / res["paxos"] - 1) * 100
+        return f"R2_gain_over_paxos={gain:.0f}% (paper: ~57%)"
+    return _bar_family(arts, "fig12", summary)
+
+
+# ------------------------------------------------------------------ fig 13
+def _fig13(arts, quick):
+    out = []
+    tputs: Dict[str, Dict[int, float]] = {}
+    for name, art in arts.items():
+        rep = _rep(art)
+        if rep is None:
+            continue
+        _, proto, stag = name.split("/")
+        size = int(stag.split("=")[1])
+        tputs.setdefault(proto, {})[size] = rep["throughput"]
+        out.append(csv_row(name, _wall(art), rep["count"],
+                           f"tput={rep['throughput']:.0f}req/s"))
+    for proto, by_size in tputs.items():
+        mx = max(by_size.values())
+        for s in sorted(by_size):
+            out.append(csv_row(f"fig13/{proto}/norm/payload={s}", 0, 1,
+                               f"normalized={by_size[s]/mx:.3f} (paper: >0.86)"))
+    if "paxos" in tputs and "pigpaxos" in tputs:
+        shared = set(tputs["paxos"]) & set(tputs["pigpaxos"])
+        if shared:
+            r = min(tputs["pigpaxos"][s] / tputs["paxos"][s] for s in shared)
+            out.append(csv_row("fig13/summary", 0, 1,
+                               f"min_pig_over_paxos={r:.1f}x "
+                               f"(paper: ~3x at all sizes)"))
+    return out
+
+
+# ------------------------------------------------------------- figs 14/15
+def _iqr_row(name, art):
+    rep = _rep(art)
+    if rep is None:
+        return None
+    return csv_row(name, _wall(art), rep["count"],
+                   f"median={ms(rep['median_ms']):.2f}ms "
+                   f"IQR=[{ms(rep['p25_ms']):.2f},{ms(rep['p75_ms']):.2f}]ms")
+
+
+def _fig14(arts, quick):
+    return [r for name, art in arts.items()
+            if (r := _iqr_row(name, art)) is not None]
+
+
+def _fig15(arts, quick):
+    out = []
+    base = None
+    for name, art in arts.items():
+        if name == "fig15/fault_free":
+            continue
+        rep = _rep(art)
+        if rep is None:
+            continue
+        out.append(csv_row(name, _wall(art), rep["count"],
+                           f"median={ms(rep['median_ms']):.2f}ms "
+                           f"IQR=[{ms(rep['p25_ms']):.2f},{ms(rep['p75_ms']):.2f}]ms "
+                           f"tput={rep['throughput']:.0f}"))
+        if name == "fig15/PRC=1/gray=1":
+            base = rep["median_ms"]
+    ff = arts.get("fig15/fault_free")
+    rep0 = _rep(ff) if ff else None
+    if rep0 is not None:
+        gap = (f"; prc+gray within "
+               f"{abs(ms(base) - ms(rep0['median_ms'])):.2f}ms "
+               f"of fault-free" if base is not None else "")
+        out.append(csv_row("fig15/fault_free", _wall(ff), rep0["count"],
+                           f"median={ms(rep0['median_ms']):.2f}ms{gap}"))
+    return out
+
+
+# ------------------------------------------------------------------ fig 16
+def _fig16(arts, quick):
+    art = arts.get("fig16/group_failure")
+    rep = _rep(art) if art else None
+    if rep is None or "extras" not in rep:
+        return []
+    sc = registry.get("fig16/group_failure")
+    fail_at = min(float(ev[2]) for ev in sc.fault_plan().events
+                  if ev[0] == "crash")
+    warmup = rep["warmup_s"]
+    tl = rep["extras"]["timeline"]
+    b = tl["bucket_s"]
+    counts = tl["counts"]
+    # round(): 0.3/0.05 is 5.999... in floats; int() would leak a warmup
+    # bucket into the pre-failure window
+    pre = sum(counts[round(warmup / b):round(fail_at / b)])
+    post = sum(counts[round(fail_at / b):round((fail_at + 0.5) / b)])
+    tput_pre = pre / (fail_at - warmup)
+    tput_post = post / 0.5
+    drop = (1 - tput_post / max(tput_pre, 1)) * 100
+    return [csv_row("fig16/group_failure", _wall(art), rep["count"],
+                    f"tput_before={tput_pre:.0f} tput_during={tput_post:.0f} "
+                    f"drop={drop:.1f}% (paper: ~3%)")]
+
+
+# ------------------------------------------------------------------ fig 17
+def _fig17(arts, quick):
+    out = []
+    mats = {}
+    for name, art in arts.items():
+        rep = _rep(art)
+        if rep is None or "extras" not in rep:
+            continue
+        proto = name.split("/")[1]
+        m = rep["extras"]["flight_per_op"]
+        mats[proto] = m
+        total = sum(sum(r) for r in m)
+        leader = sum(m[0]) + sum(r[0] for r in m)
+        mx = max(v for r in m for v in r)
+        out.append(csv_row(name, _wall(art), rep["count"],
+                           f"leader_traffic_share={leader/max(total, 1e-9):.2f} "
+                           f"max_cell={mx:.2f}msg/op"))
+    if mats:
+        os.makedirs("artifacts", exist_ok=True)
+        with open("artifacts/fig17_heatmap.json", "w") as f:
+            json.dump(mats, f)
+        out.append(csv_row("fig17/summary", 0, 1,
+                           "pigpaxos spreads load: see "
+                           "artifacts/fig17_heatmap.json"))
+    return out
+
+
+# ----------------------------------------------------- post-paper families
 def _mean_std_row(name, art):
     s = art["summary"]
     t = s["throughput"]
@@ -151,6 +346,29 @@ def _zipf(arts, quick):
         out.append(csv_row("zipf/summary", 0, 1,
                            f"max_over_min_tput={spread:.2f}x across theta "
                            f"(keys never route in Pig: expect ~1.0x)"))
+    return out
+
+
+def _openloop(arts, quick):
+    out = []
+    sat = {}
+    for name, art in arts.items():
+        proto = name.split("/")[1]
+        rate = (art["spec"].get("workload") or {}).get("rate_hz", 0.0)
+        def fmt(p, us, wall, count, proto=proto, rate=rate):
+            offered = p["clients"] * rate
+            return csv_row(
+                f"openloop/{proto}/clients={p['clients']}", wall, count,
+                f"offered={offered:.0f}req/s "
+                f"achieved={ms(p['throughput']['mean']):.0f}req/s "
+                f"median={ms(p['median_ms']['mean']):.2f}ms "
+                f"p99={ms(p['p99_ms']['mean']):.2f}ms")
+        out.extend(_point_rows(art, fmt))
+        sat[proto] = _sat(art)
+    if len(sat) >= 2:
+        parts = " ".join(f"{p}={t:.0f}" for p, t in sorted(sat.items()))
+        out.append(csv_row("openloop/summary", 0, 1,
+                           f"open-loop saturation: {parts} req/s"))
     return out
 
 
@@ -269,6 +487,78 @@ def _batching(arts, quick):
 
 
 # ------------------------------------------------------- fault families
+def _ovl_points(art) -> List[dict]:
+    """Per-clients aggregates of the overload extras (goodput/p99.9/shed
+    live per unit, not in the runner's generic point aggregation)."""
+    by_clients: Dict[int, List[dict]] = {}
+    for u in art["units"]:
+        by_clients.setdefault(u["clients"], []).append(u)
+    pts = []
+    for k, us in sorted(by_clients.items()):
+        exs = [u.get("extras") or {} for u in us]
+        gp = [e["goodput"] for e in exs if e.get("goodput") is not None]
+        p999 = [e["p999_ms"] for e in exs if e.get("p999_ms") is not None]
+        adm = [e["admission"] for e in exs if "admission" in e]
+        pts.append({
+            "clients": k,
+            "offered": next((e["offered"] for e in exs
+                             if e.get("offered") is not None), None),
+            "throughput": (sum(u["throughput"] or 0 for u in us)
+                           / max(len(us), 1)),
+            "goodput": sum(gp) / len(gp) if gp else None,
+            "p99_ms": (sum(u["p99_ms"] or 0 for u in us) / max(len(us), 1)),
+            "p999_ms": sum(p999) / len(p999) if p999 else None,
+            "client_shed": sum(e.get("client_shed", 0) for e in exs),
+            # queue-length policies report shed_queue/shed_rate, the
+            # latency-driven policy reports shed_latency — sum whatever ran
+            "adm_shed": sum(a.get("shed_queue", 0) + a.get("shed_rate", 0)
+                            + a.get("shed_latency", 0) for a in adm),
+        })
+    return pts
+
+
+def _overload(arts, quick):
+    """Overload family: offered vs achieved vs goodput per grid point, the
+    shed counters on both sides of the admission gate, and the headline
+    noadm-vs-adm comparison at the top of the load sweep (the claim the
+    regression gate turns into a bound: goodput holds flat under 4x
+    offered load WITH admission control and collapses without)."""
+    out = []
+    top: Dict[str, dict] = {}
+    for name, art in sorted(arts.items()):
+        pts = _ovl_points(art)
+        wall = _wall(art)
+        for p in pts:
+            off = (f"{p['offered']:.0f}req/s" if p["offered"] is not None
+                   else "n/a")
+            out.append(csv_row(
+                f"{name}/clients={p['clients']}", wall / max(len(pts), 1), 1,
+                f"offered={off} achieved={p['throughput']:.0f}req/s "
+                f"goodput={ms(p['goodput']):.0f}req/s "
+                f"p99={ms(p['p99_ms']):.2f}ms p999={ms(p['p999_ms']):.2f}ms "
+                f"shed_client={p['client_shed']} shed_adm={p['adm_shed']} "
+                f"consistency={_consistency_tag(art)}"))
+        if pts:
+            top[name] = max(pts, key=lambda p: p["offered"] or 0)
+    a, n = top.get("overload/paxos/adm"), top.get("overload/paxos/noadm")
+    if a is not None and n is not None:
+        out.append(csv_row(
+            "overload/summary", 0, 1,
+            f"goodput_at_4x adm={ms(a['goodput']):.0f}req/s "
+            f"noadm={ms(n['goodput']):.0f}req/s "
+            f"(admission holds goodput; without it the SLO collapses)"))
+    la = top.get("overload/paxos/latadm")
+    if la is not None and a is not None:
+        out.append(csv_row(
+            "overload/latadm_summary", 0, 1,
+            f"goodput_at_4x latency_adm={ms(la['goodput']):.0f}req/s "
+            f"queue_adm={ms(a['goodput']):.0f}req/s "
+            f"shed latency_adm={la['adm_shed']} queue_adm={a['adm_shed']} "
+            f"(head-to-head: SLO-driven shedding vs queue-length shedding)"))
+    return out
+
+
+# ------------------------------------------------------- fault families
 def _consistency_tag(art: dict) -> str:
     """Roll the per-unit audit verdicts up to one token for the row."""
     if art.get("consistency") == "model":
@@ -351,6 +641,73 @@ def _avail(arts, quick):
                 f"{base}/xcheck", 0, 1,
                 f"dip des={d['des']:.2f} batch={d['batch']:.2f} "
                 f"delta={abs(d['des'] - d['batch']):.3f} ({note})"))
+    return out
+
+
+def _storm(arts, quick):
+    """Storm family: throughput under randomized crash-recover storms with
+    the injected-event count and the audit verdict per scenario."""
+    out = []
+    for name, art in sorted(arts.items()):
+        rep = _rep(art)
+        if rep is None:
+            continue
+        ex = rep.get("extras") or {}
+        n_ev = len(art.get("faults") or [])
+        s = art["summary"]["throughput"]
+        out.append(csv_row(
+            name, _wall(art), rep["count"],
+            f"tput={ms(s['mean']):.0f}req/s std={s['std'] or 0:.0f} "
+            f"fault_events={n_ev} "
+            f"unavail={ms(ex.get('unavail_ms')):.0f}ms "
+            f"retries={ex.get('client_retries', 0)} "
+            f"consistency={_consistency_tag(art)}"))
+    return out
+
+
+def _reconfig(arts, quick):
+    """Reconfiguration family: throughput under membership change, the
+    membership events applied, the unavailability window, and the audit
+    verdict (checked against the time-varying membership)."""
+    out = []
+    for name, art in sorted(arts.items()):
+        rep = _rep(art)
+        if rep is None:
+            continue
+        ex = rep.get("extras") or {}
+        cfg = [ev for ev in (art.get("faults") or [])
+               if ev[0] in ("add_node", "remove_node", "replace_leader")]
+        evs = " ".join(f"{ev[0]}({ev[1]})@{ev[2]:.1f}s" for ev in cfg)
+        out.append(csv_row(
+            name, _wall(art), rep["count"],
+            f"tput={rep['throughput']:.0f}req/s events=[{evs}] "
+            f"unavail={ms(ex.get('unavail_ms')):.0f}ms "
+            f"retries={ex.get('client_retries', 0)} "
+            f"consistency={_consistency_tag(art)}"))
+    return out
+
+
+def _rolling(arts, quick):
+    """Rolling-upgrade family: every node restarted in sequence; reports
+    the per-restart unavailability windows (mean and worst) alongside the
+    restart count and the audit verdict."""
+    out = []
+    for name, art in sorted(arts.items()):
+        rep = _rep(art)
+        if rep is None:
+            continue
+        ex = rep.get("extras") or {}
+        per = ex.get("per_fault_unavail_ms") or []
+        ws = [p["unavail_ms"] for p in per if p["unavail_ms"] is not None]
+        bits = [f"tput={rep['throughput']:.0f}req/s",
+                f"restarts={len(per)}"]
+        if ws:
+            bits.append(f"unavail_per_restart_mean="
+                        f"{sum(ws) / len(ws):.0f}ms")
+            bits.append(f"unavail_per_restart_max={max(ws):.0f}ms")
+        bits.append(f"retries={ex.get('client_retries', 0)}")
+        bits.append(f"consistency={_consistency_tag(art)}")
+        out.append(csv_row(name, _wall(art), rep["count"], " ".join(bits)))
     return out
 
 
@@ -529,9 +886,15 @@ def _reads(arts, quick):
 
 
 SUMMARIZERS = {
-    "table1": _table1, "table2": _table2, "fig8": _fig8,
-    "zipf": _zipf, "conflict": _conflict, "wan": _wan, "scale": _scale,
-    "batching": _batching, "avail": _avail,
+    "table1": _table1, "table2": _table2,
+    "fig8": _fig8, "fig9": _fig9, "fig10": _fig10, "fig11": _fig11,
+    "fig12": _fig12, "fig13": _fig13, "fig14": _fig14, "fig15": _fig15,
+    "fig16": _fig16, "fig17": _fig17,
+    "zipf": _zipf, "openloop": _openloop, "conflict": _conflict,
+    "wan": _wan, "scale": _scale,
+    "batching": _batching, "overload": _overload,
+    "avail": _avail, "storm": _storm,
+    "reconfig": _reconfig, "rolling": _rolling,
     "megagrid": _megagrid, "obs": _obs, "reads": _reads,
 }
 
@@ -560,9 +923,9 @@ def family_rows(families: Sequence[str], quick: bool = True,
                 artifact: Optional[dict] = None,
                 backend_override: Optional[str] = None,
                 device=None) -> List[str]:
-    """Run the given families through the registry runner on ``device``
-    (or reuse a pre-computed suite ``artifact``) and return their CSV
-    rows."""
+    """Run the given families through the registry runner (the batch
+    scenarios on ``device``, the discrete-event ones inline), or reuse a
+    pre-computed suite ``artifact``, and return their CSV rows."""
     if artifact is None:
         artifact = runner.run_families(families, quick=quick,
                                        filter_expr=filter_expr,

@@ -1,16 +1,20 @@
 """Command line for the port's scenarios.
 
     python -m repro_torch.experiments.run --filter 'scale/batch/*' \\
-        [--full] [--device cpu] [--backend batch] [--rows] --json PATH
+        [--full] [--device cpu] [--backend batch|des] [--processes N] \\
+        [--rows] --json PATH
 
-Runs the selected scenarios on the batch backend (CUDA by default) and
-writes the ``repro-experiments/v1`` artifact, which
+Runs the selected scenarios, the discrete-event ones on the host (in
+``--processes`` workers) and the batch ones on the card (CUDA by default),
+and writes the ``repro-experiments/v1`` artifact, which
 ``benchmarks/regression_gate.py`` reads as it reads the reference's.
 ``--backend batch`` switches the ``batch_ok`` discrete-event scenarios to
-the batch backend (the paper's Fig. 8 and Tables 1-2 among them);
+the batch backend (the paper's Fig. 8 and Tables 1-2 among them),
+``--backend des`` the batch ones to the discrete-event engines;
 ``--rows`` prints the report's ``name,us_per_call,derived`` rows after the
 table, e.g.
 
+    python -m repro_torch.experiments.run --filter fig9 --processes 4 --rows
     python -m repro_torch.experiments.run --filter fig8,table1,table2 \\
         --backend batch --full --rows
 """
@@ -21,6 +25,11 @@ import json
 import sys
 
 from . import registry, report, runner
+
+
+def _num(x, width, digits) -> str:
+    """A summary number, or "-" where the window had no completions."""
+    return f"{x:{width}.{digits}f}" if x is not None else f"{'-':>{width}s}"
 
 
 def main(argv=None) -> int:
@@ -35,13 +44,18 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--backend", default=None,
                     help="backend override: 'batch' runs the batch_ok "
-                         "discrete-event scenarios on the batch backend")
+                         "discrete-event scenarios on the batch backend, "
+                         "'des' the batch scenarios on the DES")
+    ap.add_argument("--processes", type=int, default=0,
+                    help="worker processes for the discrete-event units "
+                         "(0: inline)")
     ap.add_argument("--rows", action="store_true",
                     help="print the report rows of the artifact")
     ap.add_argument("--json", default=None, help="write the artifact here")
     args = ap.parse_args(argv)
     art = runner.run_scenarios(registry.select(args.filter),
                                quick=not args.full,
+                               processes=args.processes,
                                ignore_quick_skip=bool(args.filter),
                                backend_override=args.backend,
                                device=args.device)
@@ -50,9 +64,11 @@ def main(argv=None) -> int:
     for sa in art["scenarios"]:
         s, run = sa["summary"], sa["run"]
         print(f"{sa['name']:36s} {run['cells']:5d} "
-              f"{s['throughput']['mean']:10.1f} {s['median_ms']['mean']:9.4f} "
-              f"{s['p99_ms']['mean']:8.4f} {run['wall_s']:7.2f} "
-              f"{run['device']}")
+              f"{_num(s['throughput']['mean'], 10, 1)} "
+              f"{_num(s['median_ms']['mean'], 9, 4)} "
+              f"{_num(s['p99_ms']['mean'], 8, 4)} {run['wall_s']:7.2f} "
+              f"{run['device']}"
+              + (f" events={run['events']}" if "events" in run else ""))
     if args.rows:
         for row in report.rows_for_artifact(art):
             print(row)

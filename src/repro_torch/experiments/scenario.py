@@ -4,14 +4,15 @@ spec, in its order, so ``spec_dict`` records the same keys, and its
 registration-time checks, word for word, except the check of the ``obs``
 knobs' values, which configure the discrete-event tracer.
 
-The port has no discrete-event engine.  A scenario may still name
-``backend="des"`` when it is ``batch_ok``: the runner's
-``backend_override="batch"`` switches it to the batch backend, as the
-reference's does, and the batch checks run again on the switched spec.
-Every other ``"des"`` scenario is refused here.  The fields only the
-discrete-event engines read (``audit``, ``engine``, ``spare_nodes``,
-``failover``, ``pipeline_depth``, ``admission``) are recorded and
-ignored, as the reference's batch backend ignores them."""
+A scenario runs on one of two backends.  ``backend="des"`` runs one
+discrete-event ``Cluster`` per (clients, seed) unit, where every field
+takes effect (``audit``, ``engine``, ``spare_nodes``, ``pipeline_depth``,
+``batch``, ``lease``, the fault plan, ``collect``), as on the reference.
+``backend="batch"`` (the port's default; the reference's is ``"des"``)
+runs the whole grid as one batch on the card.  A discrete-event scenario
+that asks for what the port has not yet ported (``obs``, ``failover``,
+``admission``, or ``engine="ref"``) is refused here, naming ROADMAP item
+13b."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,12 +44,13 @@ class Scenario:
     # {"kind": "wan", "nodes_per_region": [...], "oneway_ms": [[...]]}
     topo: Optional[dict] = None
     failures: Tuple[FailureEvent, ...] = ()
-    # declarative fault plan (mask-expressible on the batch backend:
-    # crash/recover windows and whole-run slow nodes), merged with
+    # declarative fault plan (crash/recover windows, gray nodes,
+    # partitions, drops, membership change, storms on the DES; only
+    # mask-expressible plans on the batch backend), merged with
     # ``failures`` by fault_plan()
     faults: Optional[FaultPlan] = None
-    # the reference's linearizability audit of discrete-event units
-    # (batch units carry consistency="model" instead)
+    # run the linearizability auditor on every DES unit (batch units
+    # carry consistency="model" instead)
     audit: bool = False
     clients: Tuple[int, ...] = (60,)         # offered-load grid (clients)
     # "max"   — per seed, keep the best throughput over the client grid
@@ -57,10 +59,10 @@ class Scenario:
     seeds: Tuple[int, ...] = (2,)
     duration: float = 0.6
     warmup: float = 0.3
-    engine: str = "exact"                    # the reference's DES engine
+    engine: str = "exact"                    # "exact" | "fast" (DES engine)
     # "batch" — the whole clients x seeds grid is one batch-backend run
     # (the port's default; the reference's is "des");
-    # "des" — the reference's discrete-event engines (batch_ok only here)
+    # "des"   — one Cluster run per (clients, seed) unit (pool-parallel)
     backend: str = "batch"
     # marks scenarios whose model assumptions the batch backend satisfies:
     # the runner switches these to "batch" via backend_override
@@ -68,7 +70,7 @@ class Scenario:
     leader_timeout: float = 50e-3
     # spare nodes for membership events (DES only)
     spare_nodes: int = 0
-    # failover policy kwargs (DES only)
+    # failover policy kwargs (DES only; not ported yet, ROADMAP item 13b)
     failover: Optional[dict] = None
     # leader-side batching kwargs ({"max_batch": m, "max_delay_ms": ms}):
     # max_batch maps to vectorsim's batch_m (the saturated-batch model, so
@@ -80,12 +82,12 @@ class Scenario:
     # b, "lease_safety": True}), required for read_path="lease"; the batch
     # backend models an uncontested lease held for the whole run
     lease: Optional[dict] = None
-    # admission-control kwargs (DES only)
+    # admission-control kwargs (DES only; not ported yet, ROADMAP 13b)
     admission: Optional[dict] = None
     # observability kwargs: the batch backend emits the leader-backlog
     # series when set
     obs: Optional[dict] = None
-    # extras: "per_node_msgs" | "timeline" (fault runs) | "flight" (DES)
+    # extras: "per_node_msgs" | "timeline" | "flight" | "overload"
     collect: Tuple[str, ...] = ()
     # quick-mode overrides (None -> use the full-mode value / skip nothing)
     quick_clients: Optional[Tuple[int, ...]] = None
@@ -97,11 +99,17 @@ class Scenario:
     def __post_init__(self):
         if self.backend not in ("des", "batch"):
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.backend == "des" and not self.batch_ok:
-            raise ValueError(
-                f"scenario {self.name!r} needs the discrete-event engine "
-                f"(backend='des', not batch_ok): repro_torch has no DES, "
-                f"only the batch backend")
+        if self.backend == "des":
+            missing = [what for what, on in (
+                ("obs", self.obs is not None),
+                ("failover", self.failover is not None),
+                ("admission", self.admission is not None),
+                ("engine='ref'", self.engine == "ref")) if on]
+            if missing:
+                raise ValueError(
+                    f"scenario {self.name!r} needs {', '.join(missing)} on "
+                    f"the discrete-event engines, which repro_torch has not "
+                    f"ported yet (ROADMAP item 13b)")
         for ev in self.failures:
             validate_event(tuple(ev))
         plan = self.fault_plan()
@@ -164,7 +172,9 @@ class Scenario:
                 "seed stack (engine='ref'): the seed client has no read "
                 "op kind — use engine='exact' or 'fast'")
         if self.lease is not None:
-            _check_lease(**self.lease)
+            # registration-time knob validation
+            from ..core.paxos import LeaseConfig
+            LeaseConfig(**self.lease)
             if self.protocol == "epaxos":
                 raise ValueError(
                     "leases are leader-granted; epaxos is leaderless — "
@@ -256,17 +266,11 @@ class ResolvedScenario:
     duration: float
     warmup: float
 
-
-def _check_lease(duration_ms: float = 200.0, renew_ms=None,
-                 drift_bound: float = 1e-4, lease_safety: bool = True):
-    """The lease kwargs' checks (``repro.core.paxos.LeaseConfig``)."""
-    if duration_ms <= 0:
-        raise ValueError("lease duration_ms must be > 0")
-    if renew_ms is not None and not (0 < renew_ms <= duration_ms):
-        raise ValueError("lease renew_ms must be in (0, duration_ms]")
-    if not (0.0 <= drift_bound < 0.4):
-        raise ValueError("drift_bound must be in [0, 0.4) — the safety "
-                         "margin 1 - 2*drift_bound must stay positive")
+    def units(self):
+        """The independent work units: one DES run per (clients, seed)."""
+        for k in self.clients:
+            for s in self.seeds:
+                yield (k, s)
 
 
 def build_topology(spec: Optional[dict]) -> Optional[Topology]:

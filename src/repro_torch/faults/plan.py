@@ -1,22 +1,34 @@
-"""Declarative fault plans, lowered to the batch backend's masks (copied
-from ``repro.faults.plan``).
+"""Declarative fault plans.
 
-A :class:`FaultPlan` is pure data: concrete timed events ``(kind, ...args,
-t)``, periodic ``crash_recover`` cycles and seeded storms.
-``materialize(horizon)`` expands it into one sorted event list, and
-``to_masks(n, horizon)`` lowers the *mask-expressible* plans (crash /
-recover windows plus whole-run ``slow`` extra latency) to the per-node
-down-windows and slow vectors that ``core.vectorsim.build_config`` takes;
-anything else raises ``ValueError`` with the reference's wording, so a
-scenario validates batch eligibility when it is registered.
+A :class:`FaultPlan` is pure data describing *when* and *how* the cluster
+misbehaves, independent of the engine that executes it:
 
-Only the batch path is copied.  The discrete-event engines are not
-ported, so neither are their pieces: ``apply_plan`` (the DES compiler),
-the partition, drop, membership and storm constructors, and storm
-expansion (a plan with storms raises ``NotImplementedError`` when it is
-materialized).  The ``storms`` field stays, so that a plan's
-``dataclasses.asdict`` (recorded in a scenario's spec) keeps the
-reference's keys.
+* **timed events** — concrete ``(kind, ...args, t)`` tuples: ``crash`` /
+  ``recover`` a node, ``partition`` / ``heal`` a link (symmetric), the
+  ``_oneway`` variants (asymmetric), and windowed degradations ``slow``
+  (extra one-way latency and/or a latency factor — the "gray node" model)
+  and ``drop`` (probabilistic message loss at a node);
+* **periodic events** — ``crash_recover`` cycles expanded over a horizon;
+* **storms** — seeded randomized fault generators parameterized by rate,
+  target set, mean downtime, and a concurrency cap (the liveness guard:
+  a storm never downs more than ``max_concurrent`` targets at once).
+
+``materialize(horizon)`` expands everything into one sorted concrete event
+list — the single source of truth consumed by both compilers:
+
+* ``apply_plan(cluster, plan)`` schedules the events as virtual-time
+  callbacks on the DES scheduler (exact and fast engines);
+* ``plan.to_masks(n, horizon)`` lowers *mask-expressible* plans (crash /
+  recover windows plus whole-run ``slow`` extra latency) to per-node
+  availability windows + slow vectors for the batch backend
+  (``repro_torch.core.vectorsim``); anything else raises, so a scenario can
+  validate batch eligibility at registration time.
+
+Plans are frozen dataclasses of tuples: picklable, JSON-clean via
+``dataclasses.asdict``, and composable with ``+``.
+
+Copied from ``repro.faults.plan``; the port's tests hold it to the
+reference's run, event for event.
 """
 from __future__ import annotations
 
@@ -45,8 +57,11 @@ EVENT_ARITY = {
     "add_node": 3, "remove_node": 3, "replace_leader": 3,
 }
 
-# membership-change kinds: DES only (the batch model's replica set is fixed)
+# membership-change kinds: DES-only (the batch model's replica set is fixed)
 _MEMBERSHIP_KINDS = ("add_node", "remove_node", "replace_leader")
+
+# kinds the batch backend can express as masks (see to_masks)
+_MASK_KINDS = ("crash", "recover", "slow")
 
 
 def _event_time(ev: tuple) -> float:
@@ -65,12 +80,13 @@ def validate_event(ev: tuple) -> None:
 
 @dataclass(frozen=True)
 class FaultPlan:
-    """One declarative fault schedule (see the module docstring)."""
+    """One declarative fault schedule (see module docstring for the forms)."""
 
     events: Tuple[tuple, ...] = ()
     # ("crash_recover", node, period, downtime, t0, t1)
     periodic: Tuple[tuple, ...] = ()
-    # seeded randomized storms (DES side; not expanded here)
+    # {"kind": "crash"|"partition", "rate_hz", "t0", "t1", "mean_downtime",
+    #  "targets": (ids...), "seed", "max_concurrent"}
     storms: Tuple[dict, ...] = ()
 
     def __post_init__(self):
@@ -93,12 +109,9 @@ class FaultPlan:
 
     # ------------------------------------------------------------ expansion
     def materialize(self, horizon: float) -> List[tuple]:
-        """Expand periodic entries into the sorted concrete event list for
-        a run of ``horizon`` virtual seconds."""
-        if self.storms:
-            raise NotImplementedError(
-                "fault storms are expanded by the discrete-event side of "
-                "repro.faults, which repro_torch does not port")
+        """Expand periodic entries and storms into the sorted concrete event
+        list for a run of ``horizon`` virtual seconds.  Deterministic: storms
+        draw from their own seeded generator, never the simulation RNG."""
         evs = [tuple(ev) for ev in self.events if _event_time(ev) < horizon]
         for (_, node, period, downtime, t0, t1) in self.periodic:
             t = float(t0)
@@ -106,14 +119,17 @@ class FaultPlan:
                 evs.append(("crash", node, t))
                 evs.append(("recover", node, min(t + downtime, horizon)))
                 t += period
+        for s in self.storms:
+            evs.extend(_expand_storm(s, horizon))
         evs.sort(key=_event_time)
         self._check_degradation_overlap(evs)
         return evs
 
     @staticmethod
     def _check_degradation_overlap(evs: Sequence[tuple]) -> None:
-        """One degradation state per node: overlapping slow/drop windows on
-        the same node are refused."""
+        """The Network holds ONE degradation state per node, so overlapping
+        slow/drop windows on the same node would silently clobber each other
+        — reject them loudly instead."""
         wins: Dict[int, List[Tuple[float, float]]] = {}
         for ev in evs:
             if ev[0] in ("slow", "drop"):
@@ -126,7 +142,11 @@ class FaultPlan:
                 wins.setdefault(node, []).append((t0, t1))
 
     def validate_targets(self, n: int, horizon: float) -> None:
-        """Every materialized event must target node ids < ``n``."""
+        """Every materialized event must target node ids < ``n`` — the
+        registry-time guard: a typo'd id fails at registration, not as an
+        IndexError halfway through a suite run.  For plans with membership
+        events, pass the TOTAL node count (members + spares): ``add_node``
+        legitimately names a node outside the initial membership."""
         for ev in self.materialize(horizon):
             nodes = (ev[1], ev[2]) if ev[0] in (
                 "partition", "heal", "partition_oneway", "heal_oneway") \
@@ -162,8 +182,9 @@ class FaultPlan:
         Returns ``{"down": (n, W, 2) float64 [lo, hi) down-windows padded
         with +inf, "slow": (n,) float64 extra one-way seconds}``.  Raises
         ``ValueError`` for anything the round-level model cannot express:
-        partitions, drops, latency factors, membership change, or ``slow``
-        windows that do not span the whole run.
+        partitions, drops, latency factors, or ``slow`` windows that do not
+        span the whole run (the "gray relay throughout" form is supported;
+        transient gray windows need the DES).
         """
         windows: Dict[int, List[List[float]]] = {}
         open_at: Dict[int, float] = {}
@@ -239,6 +260,18 @@ def crash_window(node: int, t0: float, t1: Optional[float] = None) -> FaultPlan:
     return FaultPlan(events=tuple(evs))
 
 
+def partition_window(a: int, b: int, t0: float, t1: Optional[float] = None,
+                     oneway: bool = False) -> FaultPlan:
+    """Cut the a<->b link (or only a->b with ``oneway``) at ``t0``, heal at
+    ``t1`` (None = never)."""
+    cut = "partition_oneway" if oneway else "partition"
+    heal = "heal_oneway" if oneway else "heal"
+    evs = [(cut, a, b, float(t0))]
+    if t1 is not None:
+        evs.append((heal, a, b, float(t1)))
+    return FaultPlan(events=tuple(evs))
+
+
 def slow_window(node: int, t0: float = 0.0, t1: float = _INF,
                 extra_latency: float = 0.0, factor: float = 1.0) -> FaultPlan:
     """Gray/slow node: every hop touching ``node`` in [t0, t1) pays
@@ -247,7 +280,165 @@ def slow_window(node: int, t0: float = 0.0, t1: float = _INF,
                               float(extra_latency), float(factor)),))
 
 
+def drop_window(node: int, t0: float, t1: float, prob: float) -> FaultPlan:
+    """Gray/lossy node: hops touching ``node`` in [t0, t1) drop w.p. ``prob``."""
+    return FaultPlan(events=(("drop", node, float(t0), float(t1),
+                              float(prob)),))
+
+
+def add_node(node: int, t: float) -> FaultPlan:
+    """Join spare ``node`` to the cluster at ``t``: the node catches up from
+    a leader snapshot + log suffix, then the leader commits a single-server
+    ``add_node`` reconfiguration through the normal log."""
+    return FaultPlan(events=(("add_node", int(node), float(t)),))
+
+
+def remove_node(node: int, t: float) -> FaultPlan:
+    """Remove ``node`` from the membership at ``t`` via a single-server
+    reconfiguration command (the node may be the leader — leadership moves)."""
+    return FaultPlan(events=(("remove_node", int(node), float(t)),))
+
+
+def replace_leader(node: int, t: float) -> FaultPlan:
+    """Planned leadership handoff: ``node`` runs phase-1 with a higher ballot
+    at ``t``; the sitting leader steps down on seeing the higher promise."""
+    return FaultPlan(events=(("replace_leader", int(node), float(t)),))
+
+
+def rolling_restart(nodes: Sequence[int], t0: float, downtime: float = 0.06,
+                    gap: float = 0.15) -> FaultPlan:
+    """Restart every node in ``nodes`` in sequence: node i crashes at
+    ``t0 + i*gap`` and recovers ``downtime`` later.  ``gap`` must exceed
+    ``downtime`` so at most one node is ever down (the rolling-upgrade
+    availability model)."""
+    if gap <= downtime:
+        raise ValueError(f"rolling_restart gap ({gap}) must exceed downtime "
+                         f"({downtime}) — otherwise restarts overlap")
+    evs: List[tuple] = []
+    for i, node in enumerate(nodes):
+        t = float(t0) + i * float(gap)
+        evs.append(("crash", int(node), t))
+        evs.append(("recover", int(node), t + float(downtime)))
+    return FaultPlan(events=tuple(evs))
+
+
+def periodic_crash(node: int, period: float, downtime: float,
+                   t0: float = 0.0, t1: float = _INF) -> FaultPlan:
+    """Crash ``node`` every ``period`` seconds for ``downtime`` each time."""
+    return FaultPlan(periodic=(("crash_recover", node, float(period),
+                                float(downtime), float(t0), float(t1)),))
+
+
+def storm(targets: Sequence[int], rate_hz: float, t0: float, t1: float,
+          mean_downtime: float = 0.15, seed: int = 0,
+          kind: str = "crash", max_concurrent: int = 1) -> FaultPlan:
+    """Randomized fault storm: Poisson fault arrivals at ``rate_hz`` over
+    [t0, t1), each crashing (or partitioning a pair of) a random target for
+    Exp(``mean_downtime``) seconds.  ``max_concurrent`` is the liveness
+    guard — arrivals that would exceed it are skipped, so a storm can never
+    down a quorum by accident.  Fully determined by ``seed``."""
+    return FaultPlan(storms=({
+        "kind": kind, "rate_hz": float(rate_hz), "t0": float(t0),
+        "t1": float(t1), "mean_downtime": float(mean_downtime),
+        "targets": tuple(int(x) for x in targets), "seed": int(seed),
+        "max_concurrent": int(max_concurrent)},))
+
+
+def _expand_storm(s: dict, horizon: float) -> List[tuple]:
+    rng = np.random.default_rng(int(s.get("seed", 0)))
+    kind = s.get("kind", "crash")
+    rate = float(s["rate_hz"])
+    targets = list(s["targets"])
+    mean_dt = float(s.get("mean_downtime", 0.15))
+    cap = int(s.get("max_concurrent", 1))
+    end = min(float(s["t1"]), horizon)
+    t = float(s["t0"])
+    down_until: Dict[int, float] = {}
+    evs: List[tuple] = []
+    while True:
+        t += float(rng.exponential(1.0 / rate))
+        if t >= end:
+            break
+        down_until = {x: r for x, r in down_until.items() if r > t}
+        if len(down_until) >= cap:
+            continue                       # liveness guard: skip this arrival
+        up = [x for x in targets if x not in down_until]
+        if kind == "partition":
+            if len(up) < 2:
+                continue
+            a, b = rng.choice(up, size=2, replace=False)
+            dur = max(0.02, float(rng.exponential(mean_dt)))
+            evs.append(("partition", int(a), int(b), t))
+            evs.append(("heal", int(a), int(b), min(t + dur, horizon)))
+            down_until[int(a)] = t + dur   # count partitioned pair vs the cap
+            down_until[int(b)] = t + dur
+        else:
+            if not up:
+                continue
+            node = int(rng.choice(up))
+            dur = max(0.02, float(rng.exponential(mean_dt)))
+            evs.append(("crash", node, t))
+            evs.append(("recover", node, min(t + dur, horizon)))
+            down_until[node] = t + dur
+    return evs
+
+
+# ------------------------------------------------------------- DES compiler
+def apply_plan(cluster, plan: FaultPlan, horizon: float = _INF) -> List[tuple]:
+    """Schedule every materialized event of ``plan`` on ``cluster``'s
+    scheduler.  Works on both DES engines (exact and fast): crash/recover go
+    through the node API (recovery re-election included, see
+    ``PaxosNode.recover``), partitions and degradations through the
+    ``Network`` failure API.  Returns the materialized events (the run's
+    fault timeline, recorded in artifacts)."""
+    sched, net = cluster.sched, cluster.net
+    evs = plan.materialize(horizon)
+    if evs:
+        # fault mode: protocols with an opt-in recovery path switch it on
+        # (EPaxos explicit-prepare instance recovery — off by default so
+        # fault-free runs keep their golden traces and hot path)
+        for nd in getattr(cluster, "nodes", ()):
+            enable = getattr(nd, "enable_recovery", None)
+            if enable is not None:
+                enable()
+    for ev in evs:
+        kind = ev[0]
+        if kind == "crash":
+            cluster.crash_at(ev[1], ev[2])
+        elif kind == "recover":
+            cluster.recover_at(ev[1], ev[2])
+        elif kind == "partition":
+            cluster.partition_at(ev[1], ev[2], ev[3])
+        elif kind == "heal":
+            sched.at(ev[3], lambda a=ev[1], b=ev[2]: net.heal(a, b))
+        elif kind == "partition_oneway":
+            sched.at(ev[3], lambda a=ev[1], b=ev[2]: net.partition_oneway(a, b))
+        elif kind == "heal_oneway":
+            sched.at(ev[3], lambda a=ev[1], b=ev[2]: net.heal_oneway(a, b))
+        elif kind == "slow":
+            _, node, t0, t1, extra, factor = ev
+            sched.at(t0, lambda n=node, e=extra, f=factor:
+                     net.degrade(n, extra_latency=e, factor=f))
+            if t1 < _INF:
+                sched.at(t1, lambda n=node: net.restore(n))
+        elif kind == "drop":
+            _, node, t0, t1, prob = ev
+            sched.at(t0, lambda n=node, p=prob: net.degrade(n, drop_prob=p))
+            if t1 < _INF:
+                sched.at(t1, lambda n=node: net.restore(n))
+        elif kind == "add_node":
+            sched.at(ev[2], lambda n=ev[1]: cluster.add_node(n))
+        elif kind == "remove_node":
+            sched.at(ev[2], lambda n=ev[1]: cluster.remove_node(n))
+        elif kind == "replace_leader":
+            sched.at(ev[2], lambda n=ev[1]: cluster.replace_leader(n))
+    return evs
+
+
 def jsonify_events(evs: Sequence[tuple]) -> List[list]:
     """Materialized events as JSON-clean lists (inf -> None)."""
-    return [[None if isinstance(x, float) and math.isinf(x) else x
-             for x in ev] for ev in evs]
+    out = []
+    for ev in evs:
+        out.append([None if isinstance(x, float) and math.isinf(x) else x
+                    for x in ev])
+    return out

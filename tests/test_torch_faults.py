@@ -92,10 +92,14 @@ def test_plan_algebra_and_expansion_match_reference():
         assert all(np.array_equal(got[k], want[k]) for k in want)
     assert tplan.jsonify_events(t.materialize(3.0)) == \
         rplan.jsonify_events(r.materialize(3.0))
-    with pytest.raises(NotImplementedError, match="storms"):
-        tplan.FaultPlan(storms=({"kind": "crash", "rate_hz": 1.0,
-                                 "t0": 0.0, "t1": 1.0,
-                                 "targets": (1,)},)).materialize(1.0)
+    # storms expand as the reference's: the same seeded draws
+    for kind in ("crash", "partition"):
+        r, t = (p.storm(targets=tuple(range(1, 25)), rate_hz=6.0, t0=0.35,
+                        t1=1.3, seed=11, kind=kind, max_concurrent=2)
+                for p in (rplan, tplan))
+        assert dataclasses.asdict(t) == dataclasses.asdict(r)
+        for horizon in (1.0, 2.0):
+            assert t.materialize(horizon) == r.materialize(horizon)
 
 
 # registration-time checks of the batch path: (what, scenario kwargs built

@@ -5,8 +5,9 @@ the CPU against the JAX reference.
 discrete-event scenarios marked ``batch_ok`` to the batch backend, as the
 reference's runner does: the same switched spec, the same filtered
 ``collect``, ``backend="batch"`` and ``consistency="model"`` in the
-artifact.  The port has no discrete-event engine, so a scenario still on
-``"des"`` raises, and so does ``backend_override="des"``.
+artifact; ``backend_override="des"`` forces the batch scenarios onto the
+port's discrete-event engines, and a scenario that needs what the port
+has not ported yet (ROADMAP item 13b) raises.
 
 Parity per cell is held as ``figures_parity`` states; the Fig. 8 cells
 here are the rotating and static relays at R=1 (a chaotic cell and a
@@ -41,7 +42,8 @@ DES_OK = [n for n in ref_registry.names()
 def test_the_44_batch_ok_scenarios_are_registered():
     assert len(DES_OK) == 44
     assert [n for n in registry.names()
-            if registry.get(n).backend == "des"] == DES_OK
+            if registry.get(n).backend == "des"
+            and registry.get(n).batch_ok] == DES_OK
     fams = {}
     for n in DES_OK:
         fams[n.split("/")[0]] = fams.get(n.split("/")[0], 0) + 1
@@ -84,10 +86,11 @@ def test_override_artifact_has_the_reference_schema():
 
 def test_des_scenarios_raise_instead_of_skipping():
     sc = registry.get("fig8/rotating/R=1")
-    with pytest.raises(ValueError, match="fig8/rotating/R=1"):
-        runner.run_scenarios([sc], quick=True, device="cpu")
-    with pytest.raises(ValueError, match="no discrete-event engine"):
-        runner.run_scenarios([sc], quick=True, backend_override="des",
+    # forced onto the DES, a batch scenario that needs the observability
+    # layer raises, naming the roadmap item that brings it
+    obs = registry.get("obs/pigpaxos/backlog/batch")
+    with pytest.raises(ValueError, match="ROADMAP item 13b"):
+        runner.run_scenarios([obs], quick=True, backend_override="des",
                              device="cpu")
     with pytest.raises(ValueError, match="unknown backend override"):
         runner.run_scenarios([sc], quick=True, backend_override="gpu",
@@ -100,8 +103,17 @@ def test_des_scenarios_raise_instead_of_skipping():
 
 
 def test_a_des_scenario_that_is_not_batch_ok_is_refused():
-    with pytest.raises(ValueError, match="repro_torch has no DES"):
-        Scenario(name="fig9/paxos", protocol="paxos", n=25, backend="des")
+    # the port runs every discrete-event scenario now; it refuses those
+    # that need ROADMAP item 13b (obs, failover, admission, engine="ref")
+    sc = Scenario(name="fig9/paxos", protocol="paxos", n=25, backend="des")
+    assert sc.spec_dict() == RefScenario(name="fig9/paxos", protocol="paxos",
+                                         n=25).spec_dict()
+    for kw in (dict(obs={"sample_rate": 0.1}),
+               dict(failover={"detect_timeout": 0.05}),
+               dict(admission={"max_queue": 32}), dict(engine="ref")):
+        with pytest.raises(ValueError, match="ROADMAP item 13b"):
+            Scenario(name="fig9/paxos", protocol="paxos", n=25,
+                     backend="des", **kw)
     with pytest.raises(ValueError, match="unknown backend"):
         Scenario(name="x", protocol="paxos", n=25, backend="sim")
     # the batch checks run again on the switched spec
@@ -131,6 +143,7 @@ def test_select_by_families_subset_and_run_families(monkeypatch):
     runner.run_families(["fig8"], quick=True, filter_expr="fig8/static/*",
                         backend_override="batch", device="cpu")
     assert seen == {"quick": True, "ignore_quick_skip": True,
+                    "processes": 0,
                     "backend_override": "batch", "device": "cpu",
                     "names": [f"fig8/static/R={r}"
                               for r in (1, 2, 3, 4, 5, 6, 8)]}

@@ -37,7 +37,12 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.checkpoint.manager", "repro_torch.launch.train",
               "repro_torch.shard", "repro_torch.train.sharding",
               "repro_torch.roofline", "repro_torch.launch.dryrun",
-              "repro_torch.launch.hlotop", "repro_torch.launch.reanalyze"):
+              "repro_torch.launch.hlotop", "repro_torch.launch.reanalyze",
+              "repro_torch.core.events", "repro_torch.core.messages",
+              "repro_torch.core.quorums", "repro_torch.core.node",
+              "repro_torch.core.pig", "repro_torch.core.paxos",
+              "repro_torch.core.pigpaxos", "repro_torch.core.epaxos",
+              "repro_torch.core.cluster", "repro_torch.faults.audit"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

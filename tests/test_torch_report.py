@@ -1,7 +1,8 @@
 """The report layer of the port against the reference's, on the CPU: the
 paper's analytical model (Eq. 1-3, Tables 1-2, the best-R rules) and the
-report rows of the 12 families the port runs, from the same artifact
-through both packages' ``rows_for_artifact``, text for text; the CLI's
+report rows of the 12 families of the backend override, from the same
+artifact through both packages' ``rows_for_artifact``, text for text (the
+discrete-event families' rows: ``test_torch_des_runner.py``); the CLI's
 ``--backend`` and ``--rows``.
 
 The artifacts are the port's own runs of every scenario of a family
@@ -58,7 +59,9 @@ def _short(sc):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_rows_equal_reference_rows(family):
-    scenarios = [_short(sc) for sc in registry.select(family)]
+    # the override's artifacts: the family's batch and batch_ok scenarios
+    scenarios = [_short(sc) for sc in registry.select(family)
+                 if sc.backend == "batch" or sc.batch_ok]
     art = runner.run_scenarios(scenarios, quick=True,
                                backend_override="batch", device="cpu")
     assert [sa["name"] for sa in art["scenarios"]] == \
@@ -90,8 +93,11 @@ def test_family_rows_runs_the_families(monkeypatch):
     assert seen == {"families": ["fig8"], "quick": True,
                     "filter_expr": "fig8/static/*",
                     "backend_override": "batch", "device": "cpu"}
-    assert sorted(report.SUMMARIZERS) == sorted(FAMILIES)
-    assert set(report.SUMMARIZERS) < set(ref_report.SUMMARIZERS)
+    # every family the port registers; failover and lease need ROADMAP
+    # item 13b
+    assert sorted(report.SUMMARIZERS) == sorted(
+        set(ref_report.SUMMARIZERS) - {"failover", "lease"})
+    assert set(FAMILIES) < set(report.SUMMARIZERS)
 
 
 def test_cli_backend_and_rows(capsys):
@@ -102,9 +108,12 @@ def test_cli_backend_and_rows(capsys):
     assert out[1].startswith(name) and out[1].endswith("cpu")
     assert [line.split(",")[0] for line in out[2:]] == \
         ["table2/R=1", "table2/R=2", "table2/R=4"]
-    for argv, msg in ((["--filter", name, "--device", "cpu"],
-                       "backend_override='batch'"),
-                      (["--filter", name, "--backend", "des", "--device",
-                        "cpu"], "no discrete-event engine")):
-        with pytest.raises(ValueError, match=msg):
-            run.main(argv)
+    # without the override the scenario runs on the port's DES, on the host
+    assert run.main(["--filter", name, "--device", "cpu", "--rows"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith(name) and " host events=" in out[1]
+    assert [line.split(",")[0] for line in out[2:]] == \
+        ["table2/R=1", "table2/R=2", "table2/R=4"]
+    with pytest.raises(ValueError, match="ROADMAP item 13b"):
+        run.main(["--filter", "obs/pigpaxos/backlog/batch", "--backend",
+                  "des", "--device", "cpu"])
