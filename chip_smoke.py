@@ -127,6 +127,24 @@ Phases, in order; any failure exits non-zero:
              scenario the phase runs, no audited unit in violation; the
              DES half of ``wan/N=25`` run again, bit for bit; per DES
              scenario its units, events, wall and events/s.
+34. des    - (submitted when the pooled phases begin, to a second spawned
+             pool of ``DES_WORKERS``, the costliest first; collected after
+             phase 33) the 18 discrete-event scenarios of the failover and
+             lease families, the overload cells with admission control
+             and the traced and relay-fairness obs cells, quick (every
+             one, ``quick_skip`` too) on the host: each a ``"des"``
+             artifact run on the host, no audited unit in violation, the
+             quick ``bounds`` windows of ``reference_bounds.json`` that
+             name them, its ``overload`` goodput windows
+             (``overload/paxos/{adm,latadm}``) and its ``obs_fairness``
+             entry, held by the unchanged ``benchmarks/regression_gate``;
+             ``obs/paxos/traced`` run again, bit for bit; the exact
+             engine's sampled-tracing CPU overhead at rate 0.05 (paired
+             minimum over 6 interleaved rounds, as
+             ``benchmarks/sim_engine_bench.py``) under the gate's
+             ``sim_engine.tracing_overhead_max``; the exact and seed
+             engines' events/s; per scenario its unit walls, events and
+             events/s, and the host CPU.
 7. flash   - the sm90 flash_attention kernel against its plain version on
              the card in bf16 at granite-8b's prefill shape, granite at its
              max_seq_len, a ragged S, gemma-7b's head dim 256 and a
@@ -266,6 +284,20 @@ Phases, in order; any failure exits non-zero:
              checkpoint restart on the card (save at step 2, restore,
              replay 2 steps) bit for bit, and the CPU's checkpoint
              restored on the card bit for bit.
+35. control - the trainer's control plane: ``python -m
+             repro_torch.launch.train --arch rwkv6-3b --smoke`` on the card
+             (started from phase 34's pool once its scenarios are done)
+             for 4 steps, a checkpoint every 2 committed through the
+             port's PigPaxos ``CoordinationService`` (journalled in the
+             checkpoint directory), then a second process with
+             ``--resume`` that must restore the committed step 4 and
+             commit step 6; the committed step restored in this process
+             on the card, bit for bit against its files; then, in this
+             process, a service with a follower crashed after one save
+             and the leader crashed after the next: the third commit
+             lands on the new leader and ``restore`` returns that step's
+             state on the card bit for bit; each commit's latency in
+             virtual and wall time.
 
 30. shard  - the sharding layer on a one-rank NCCL world and its (1, 1)
              ``("data", "model")`` ``DeviceMesh``: granite-8b (after phase
@@ -289,7 +321,9 @@ Phases, in order; any failure exits non-zero:
 The batch phases (17-22, 31-33) run their grids and their check runs in
 ``POOL_WORKERS`` spawned processes that drive the one card side by side
 (the step loops are host-bound), the costliest first; each worker sets
-the fan-in counts to 0 before its run and reads them after.
+the fan-in counts to 0 before its run and reads them after.  Phase 34's
+discrete-event runs (host only) go to ``DES_WORKERS`` more processes at
+the same time.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -339,8 +373,9 @@ MEGAGRID_WINDOWS = ("megagrid/slice/N=9/R=2/PRC=1/lan",
                     "megagrid/slice/N=25/R=4/PRC=0/lan")
 # phase 22's study: 2**16 cells (every one of the 24 buckets, a sixteenth
 # of the chunks; it was 2**18, then 2**17 before the training phases 27-29
-# came) keeps the script inside 600 s; the 1,000,000-cell study runs from
-# the megagrid CLI (README)
+# came) keeps the script inside 600 s (2**15 took as long on the card:
+# the EPaxos buckets, one padded chunk each, set its wall); the
+# 1,000,000-cell study runs from the megagrid CLI (README)
 MEGAGRID_CELLS = 2 ** 16
 # the study's buckets run whole-chunk through the sm90 fan-in and the plain
 # one on the card (phase 22): each group width class, both requests a step
@@ -374,6 +409,40 @@ FCHECK = {"avail/relay/N=49": "chaotic", "fig8/static/R=1": "static",
 STATIC_LAT_REL = 5e-5
 # phase 33: the DES half run again, bit for bit
 GATE_RERUN = "wan/N=25"
+# phase 34: the rest of the discrete-event scenarios (the failover and
+# lease families, the overload cells with admission control, the traced
+# and relay-fairness obs cells), quick with quick_skip ignored, in a
+# second spawned pool of DES_WORKERS beside the batch phases' (the host
+# has 8 cores: the batch pool's 4, this process and these 2; with 3 the
+# batch phases took ~27 s longer), at a lower priority (nice DES_NICE, on
+# these processes only) so that the host-bound batch loops go first; the
+# traced
+# cell run again, bit for bit; the exact engine's sampled-tracing CPU
+# overhead (benchmarks/sim_engine_bench.py's method: a 25-node PigPaxos
+# R=3 run of 40 clients over 0.4 s, traced at TRACE_RATE and untraced in
+# turn, TRACE_ROUNDS rounds, the minimum of the paired overheads) and
+# the exact and seed engines' events/s (ENGINE_ROUNDS interleaved rounds,
+# the median ratio)
+DES_REST = ("failover/detect=50ms", "failover/detect=100ms",
+            "failover/detect=200ms", "lease/expiry/d=50ms",
+            "lease/expiry/d=400ms", "overload/paxos/adm",
+            "overload/paxos/adm+batch", "overload/paxos/bursty/adm",
+            "overload/paxos/diurnal/adm", "overload/paxos/latadm",
+            "overload/pigpaxos/adm", "overload/audit/adm",
+            "overload/audit/adm+batch", "obs/pigpaxos/traced",
+            "obs/paxos/traced", "obs/epaxos/traced",
+            "obs/fairness/rotating", "obs/fairness/static")
+DES_REST_RERUN = "obs/paxos/traced"
+DES_WORKERS = 2
+DES_NICE = 10
+TRACE_RATE, TRACE_ROUNDS, ENGINE_ROUNDS = 0.05, 6, 3
+# phase 35: the trainer's control plane: launch.train on the card at
+# rwkv6-3b's smoke config, checkpoints every TRAIN_CTL_EVERY steps
+# committed through the port's CoordinationService, then --resume in a
+# second process (both run from phase 34's pool, after its scenarios,
+# beside the batch phases: ~36 s off the script's serial path); in this
+# process, a follower and the leader of the service crashed between saves
+TRAIN_CTL_ARCH, TRAIN_CTL_STEPS, TRAIN_CTL_EVERY = "rwkv6-3b", 4, 2
 CHAOTIC_COUNT_REL, CHAOTIC_LAT_REL = 5e-3, 3e-2
 CHAOTIC_MSG_ABS, CHAOTIC_TIMELINE_REL = 1e-3, 5e-2
 # flash_attention against its plain version in bf16: both compute in f32
@@ -1677,6 +1746,175 @@ def run_gate(pool):
             raise SystemExit(f"{name}: quick mean throughput {mean} outside "
                              f"[{lo}, {hi}]")
     return launches
+
+
+# -------------------------------------------------------------- phase 34
+def engine_run(engine, obs=None, dur=0.4):
+    """One run of ``benchmarks/sim_engine_bench.py``'s workload on the
+    port's engine: PigPaxos N=25 R=3, 40 closed-loop clients, ``dur`` s of
+    virtual time.  Returns (events, CPU s, wall s)."""
+    from repro_torch.core import Cluster, PigConfig
+    c = Cluster("pigpaxos", 25, pig=PigConfig(n_groups=3), seed=2,
+                engine=engine, obs=obs)
+    c.add_clients(40, stop_at=dur)
+    t0, p0 = time.perf_counter(), time.process_time()
+    events = c.sched.run(until=dur + 0.1)
+    return events, time.process_time() - p0, time.perf_counter() - t0
+
+
+def des_rest_run(name):
+    """Pool worker: ``des_run`` and the wall-clock time it finished."""
+    return (*des_run(name), time.time())
+
+
+def engine_bench():
+    """Pool worker: the exact and seed engines' events/s (``ENGINE_ROUNDS``
+    interleaved rounds: each engine's fastest wall, the median of the
+    rounds' ratios) and the exact engine's sampled-tracing CPU overhead
+    (``TRACE_ROUNDS`` rounds of an untraced and a ``TRACE_RATE`` traced
+    run, the order alternating; the minimum of the paired overheads, the
+    gated number, and their median), as ``sim_engine_bench`` measures
+    them."""
+    runs = {"ref": [], "exact": []}
+    ratios = []
+    for _ in range(ENGINE_ROUNDS):
+        rnd = {e: engine_run(e) for e in ("ref", "exact")}
+        for e, r in rnd.items():
+            runs[e].append(r)
+        if rnd["ref"][0] != rnd["exact"][0]:
+            return {"error": f"exact {rnd['exact'][0]} events, seed stack "
+                             f"{rnd['ref'][0]}"}
+        ratios.append((rnd["exact"][0] / rnd["exact"][2])
+                      / (rnd["ref"][0] / rnd["ref"][2]))
+    rate = {e: r[0][0] / min(w for _, _, w in r) for e, r in runs.items()}
+    cfgs = [("untraced", None),
+            ("traced", {"sample_rate": TRACE_RATE, "max_spans": 2_000_000})]
+    cpu = {k: [] for k, _ in cfgs}
+    events = set()
+    for i in range(TRACE_ROUNDS):
+        for k, obs in (cfgs if i % 2 == 0 else cfgs[::-1]):
+            ev, c, _ = engine_run("exact", obs=obs)
+            events.add(ev)
+            cpu[k].append(c)
+    if len(events) != 1:
+        return {"error": f"tracing changed the events: {sorted(events)}"}
+    done_at = time.time()
+    per_round = [max(0.0, 1.0 - u / t)
+                 for u, t in zip(cpu["untraced"], cpu["traced"])]
+    return {"events": runs["ref"][0][0], "events_per_s": rate,
+            "exact_over_ref": sorted(ratios)[len(ratios) // 2],
+            "ratios": ratios, "cpu_s": cpu, "per_round": per_round,
+            "overhead": min(per_round),
+            "overhead_median": sorted(per_round)[len(per_round) // 2],
+            "done_at": done_at}
+
+
+def lower_priority():
+    """Pool initializer: this worker (and what it starts) at nice
+    ``DES_NICE``."""
+    os.nice(DES_NICE)
+
+
+def submit_des_rest(pool, ckpt_dir, device_type):
+    """Phase 34's jobs to ``pool`` (host only): the engine bench first,
+    then the 18 scenarios and the rerun, the costliest first, then phase
+    35's two trainer processes (into ``ckpt_dir``).  Returns (the jobs,
+    the submission time)."""
+    tasks = list(DES_REST) + [DES_REST_RERUN]
+    order = sorted(range(len(tasks)), key=lambda i: -des_cost(tasks[i]))
+    jobs = {"bench": pool.apply_async(engine_bench)}
+    for i in order:
+        jobs[i] = pool.apply_async(des_rest_run, (tasks[i],))
+    jobs["train"] = pool.apply_async(train_cli_runs,
+                                     (ckpt_dir, device_type))
+    return jobs, time.time()
+
+
+def run_des_rest(jobs, t_submit):
+    """Phase 34: collect the 18 scenarios' artifacts and hold them to the
+    unchanged gate's windows; the rerun bit for bit; the engine bench."""
+    from benchmarks import regression_gate
+    with open(os.path.join(ROOT, "benchmarks", "reference_bounds.json")) as f:
+        ref = json.load(f)
+    got = [jobs[i].get() for i in range(len(DES_REST) + 1)]
+    bench = jobs["bench"].get()
+    done = [t for _, _, t in got] + [bench.get("done_at", t_submit)]
+    log(f"des      the last job finished {max(done) - t_submit:.2f} s after "
+        f"their submission, collected {time.time() - t_submit:.2f} s after "
+        f"it ({DES_WORKERS} workers beside the batch pool)")
+    arts = {n: sa for n, (sa, _, _) in zip(DES_REST, got)}
+    events = walls = 0
+    for name, (sa, wall, _) in zip(DES_REST, got):
+        run = sa["run"]
+        events += run["events"]
+        walls += run["wall_s"]
+        units = sa["units"]
+        log(f"des      {name:28s} units={run['cells']} events="
+            f"{run['events']} wall={run['wall_s']:.3f}s ({wall:.3f}s in "
+            f"the worker) unit walls="
+            f"{[round(u['wall_s'], 3) for u in units]} events/s="
+            f"{run['events'] / run['wall_s']:.0f} tput_mean="
+            f"{sa['summary']['throughput']['mean']} consistency="
+            f"{sa['consistency']}")
+        if sa["backend"] != "des" or run["device"] != "host":
+            raise SystemExit(f"{name}: not a discrete-event run: "
+                             f"{sa['backend']}, {run['device']}")
+        ex = units[0].get("extras") or {}
+        if name.startswith(("failover/", "lease/")):
+            log(f"des      {name:28s} unavail_ms={ex.get('unavail_ms')} "
+                f"failovers={ex.get('failover_events')}")
+            if not ex.get("failover_events"):
+                raise SystemExit(f"{name}: the failover policy promoted "
+                                 f"no successor")
+        if name.startswith("overload/"):
+            log(f"des      {name:28s} admission="
+                f"{[u['extras']['admission'] for u in units]}")
+        if name.startswith("obs/"):
+            ob = ex.get("obs") or {}
+            log(f"des      {name:28s} trace={ob.get('trace')} "
+                f"critical_path={ob.get('critical_path')}")
+            if not ob.get("cpu_busy_s"):
+                raise SystemExit(f"{name}: no obs section")
+    log(f"des      {len(DES_REST)} scenarios: {events} events in "
+        f"{walls:.3f} s of unit walls, {events / walls:.0f} events/s a "
+        f"worker; host CPU {host_cpu()}, {os.cpu_count()} cores")
+    if bare(got[-1][0]) != bare(arts[DES_REST_RERUN]):
+        raise SystemExit(f"{DES_REST_RERUN}: the rerun differs")
+    log(f"des      {DES_REST_RERUN} rerun bit for bit: True")
+    fed = {"bounds": {n: w for n, w in ref["bounds"].items() if n in arts},
+           "overload": {n: w for n, w in ref["overload"].items()
+                        if n in arts}}
+    failures, lines = regression_gate.evaluate(arts, fed)
+    fair_fail, fair_lines = regression_gate.evaluate_obs_fairness(
+        arts, ref["obs_fairness"])
+    for line in lines + fair_lines:
+        log(f"des      gate {line}")
+    if len(fed["bounds"]) != 9 or len(fed["overload"]) != 2:
+        raise SystemExit(f"des: {len(fed['bounds'])} bounds and "
+                         f"{len(fed['overload'])} overload windows; "
+                         f"expected 9 and 2")
+    if failures or fair_fail:
+        raise SystemExit(f"des: the gate failed: {failures + fair_fail}")
+    if "error" in bench:
+        raise SystemExit(f"engine bench: {bench['error']}")
+    rate = bench["events_per_s"]
+    log(f"des      engines on {bench['events']} events (PigPaxos N=25 R=3, "
+        f"40 clients, 0.4 s): exact {rate['exact']:.0f} events/s, seed "
+        f"stack {rate['ref']:.0f}; exact/ref median "
+        f"{bench['exact_over_ref']:.4f} (rounds "
+        f"{[round(r, 4) for r in bench['ratios']]})")
+    payload = {"tracing_overhead_frac": round(bench["overhead"], 4)}
+    tfail, tlines = regression_gate.evaluate_sim_engine(payload,
+                                                        ref["sim_engine"])
+    log(f"des      tracing at rate {TRACE_RATE}: overhead (minimum) "
+        f"{bench['overhead']:.4f}, median {bench['overhead_median']:.4f}, "
+        f"per round {[round(o, 4) for o in bench['per_round']]}; CPU s "
+        f"untraced {[round(c, 3) for c in bench['cpu_s']['untraced']]}, "
+        f"traced {[round(c, 3) for c in bench['cpu_s']['traced']]}")
+    for line in tlines:
+        log(f"des      gate {line}")
+    if tfail:
+        raise SystemExit(f"des: {tfail}")
 
 
 # --------------------------------------------------------------- phase 2
@@ -3779,6 +4017,179 @@ def shard_dryrun():
         raise SystemExit(f"dry-run cell: {cell}")
 
 
+# -------------------------------------------------------------- phase 35
+class TimedCoord:
+    """A ``CoordinationService`` whose every ``put`` is timed: the
+    virtual seconds its DES advanced and the wall seconds it took."""
+
+    def __init__(self, coord):
+        self.coord = coord
+        self.puts = []
+
+    def put(self, name, obj):
+        sched = self.coord.cluster.sched
+        v0, t0 = sched.now, time.perf_counter()
+        self.coord.put(name, obj)
+        self.puts.append((name, obj, sched.now - v0,
+                          time.perf_counter() - t0))
+
+    def get(self, name):
+        return self.coord.get(name)
+
+
+def train_cli_runs(ckpt_dir, device_type):
+    """Pool worker: phase 35's ``python -m repro_torch.launch.train``
+    processes on ``device_type``, into ``ckpt_dir``: ``TRAIN_CTL_STEPS``
+    steps, then ``TRAIN_CTL_EVERY`` more with ``--resume`` (not after a
+    failed first).  Returns [(arguments, exit code, output, errors,
+    wall s)]; the checks are the main process's."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for args in (["--steps", str(TRAIN_CTL_STEPS)],
+                 ["--steps", str(TRAIN_CTL_STEPS + TRAIN_CTL_EVERY),
+                  "--resume"]):
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               TRAIN_CTL_ARCH, "--smoke", "--ckpt-dir", ckpt_dir,
+               "--ckpt-every", str(TRAIN_CTL_EVERY), "--device",
+               device_type, *args]
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        runs.append((args, r.returncode, r.stdout, r.stderr,
+                     time.perf_counter() - t0))
+        if r.returncode != 0:
+            break
+    return runs
+
+
+def restored_bits(like, ckpt_dir, step):
+    """Every leaf of ``like`` restored from ``step``'s files equal to the
+    files' bits (bf16 as its uint16 bits)."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.manager import state_leaves
+    d = os.path.join(ckpt_dir, f"step_{step}")
+    with open(os.path.join(d, "manifest.json")) as f:
+        files = json.load(f)["files"]
+    got = state_leaves(like)
+    for name, info in files.items():
+        want = torch.from_numpy(np.array(np.load(os.path.join(
+            d, info["file"]))))
+        t = got[name]
+        t = t.view(torch.uint16) if t.dtype == torch.bfloat16 else t
+        if tuple(t.shape) != tuple(want.shape) or not torch.equal(
+                t.contiguous().view(-1).view(torch.uint8),
+                want.contiguous().view(-1).view(torch.uint8)):
+            raise SystemExit(f"restore of step {step}: {name} differs")
+    return len(files)
+
+
+def train_control(device, job, d):
+    """Phase 35: the trainer's control plane on the card (see the module
+    docstring): ``job`` is phase 34's pool job of ``train_cli_runs`` into
+    the directory ``d``, which this removes."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import state_leaves
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.runtime import CoordinationService
+    from repro_torch.train import build_train_step, init_train_state
+    try:
+        a = os.path.join(d, "cli")
+        runs = job.get()
+        for args, rc, out, err, wall in runs:
+            log(f"control  launch.train {' '.join(args)}: {wall:.2f} s "
+                f"(beside the batch phases); "
+                f"{' | '.join(out.strip().splitlines()[-3:])}")
+            if rc != 0:
+                raise SystemExit(f"launch.train {' '.join(args)} failed "
+                                 f"({rc}):\n{out[-3000:]}\n{err[-3000:]}")
+        out = runs[0][2]
+        last = TRAIN_CTL_STEPS
+        want = f"last committed checkpoint: {{'step': {last}, 'dir': 'step_{last}'}}"
+        if f"device={device.type}" not in out or want not in out:
+            raise SystemExit(f"launch.train: no commit of step {last} on "
+                             f"the card:\n{out[-2000:]}")
+        with open(os.path.join(a, "coord.journal")) as f:
+            journal = [json.loads(line) for line in f if line.strip()]
+        steps = [obj["step"] for name, obj in journal
+                 if name == "ckpt/latest"]
+        more = last + TRAIN_CTL_EVERY
+        log(f"control  committed through the service: steps {steps} (the "
+            f"first process's and the resumed one's)")
+        if steps != list(range(TRAIN_CTL_EVERY, more + 1, TRAIN_CTL_EVERY)) \
+                or len(steps) < 3:
+            raise SystemExit(f"launch.train committed {steps}")
+        out = runs[1][2]
+        if f"resumed from step {last}, the committed checkpoint" not in out \
+                or f"'step': {more}," not in out:
+            raise SystemExit(f"--resume did not restore step {last} and "
+                             f"commit {more}:\n{out[-2000:]}")
+        # the committed step, restored here on the card through a service
+        # rebuilt from the journal
+        cfg = get_smoke_config(TRAIN_CTL_ARCH)
+        coord = CoordinationService(
+            n_nodes=5, n_groups=2, journal=os.path.join(a, "coord.journal"))
+        mgr = CheckpointManager(a, coord=coord, async_save=False)
+        like = init_train_state(cfg, torch.Generator(device).manual_seed(9),
+                                device)
+        like, step = mgr.restore(like)
+        n = restored_bits(like, a, step)
+        log(f"control  restored committed step {step} on the card: {n} "
+            f"leaves bit for bit")
+        if step != more:
+            raise SystemExit(f"restored step {step}, committed {more}")
+        # in process: a follower, then the leader crashed between saves
+        b = os.path.join(d, "crash")
+        coord = TimedCoord(CoordinationService(n_nodes=5, n_groups=2,
+                                               seed=1))
+        mgr = CheckpointManager(b, coord=coord, async_save=True)
+        state = init_train_state(cfg, torch.Generator(device).manual_seed(0),
+                                 device)
+        step_fn = build_train_step(cfg, train_options())
+        stream = SyntheticLMStream(cfg, DataConfig(global_batch=4,
+                                                   seq_len=64, seed=0),
+                                   device=device)
+        svc = coord.coord
+        snap = None
+        for s in range(3):
+            state, metrics = step_fn(state, stream.batch_at(s))
+            snap = {k: v.clone() for k, v in state_leaves(state).items()}
+            mgr.save(s + 1, state)
+            mgr.wait()
+            if s == 0:
+                svc.crash_node(3)                 # a follower
+            elif s == 1:
+                old = svc.cluster.leader_id
+                svc.crash_node(old)               # the leader
+        new = svc.cluster.leader_id
+        meta = coord.get("ckpt/latest")
+        log(f"control  crashes: follower 3 after step 1, leader {old} after "
+            f"step 2; leader now {new}; ckpt/latest {meta}")
+        for name, obj, v, w in coord.puts:
+            log(f"control  commit {obj}: {v * 1e3:.3f} ms virtual, "
+                f"{w * 1e3:.3f} ms wall")
+        if meta != {"step": 3, "dir": "step_3"} or new == old:
+            raise SystemExit(f"the commit after the leader's crash: {meta}, "
+                             f"leader {old} -> {new}")
+        fresh = init_train_state(cfg, torch.Generator(device).manual_seed(5),
+                                 device)
+        fresh, step = mgr.restore(fresh)
+        got = state_leaves(fresh)
+        bad = [k for k in snap if not torch.equal(got[k], snap[k])]
+        log(f"control  restore after the failover: step {step}, "
+            f"{len(snap)} leaves, {len(bad)} differ")
+        if step != 3 or bad:
+            raise SystemExit(f"restore after the failover: step {step}, "
+                             f"{bad[:5]} differ")
+        return [(v, w) for _, _, v, w in coord.puts]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3813,7 +4224,13 @@ def main() -> int:
     # the batch phases' step loops are host-bound (the card idles ~90% of
     # a step): their grids and check runs go to POOL_WORKERS processes on
     # the one card, which drive it side by side
-    with multiprocessing.get_context("spawn").Pool(POOL_WORKERS) as pool:
+    import tempfile
+    ctl_dir = tempfile.mkdtemp(prefix="chip_smoke_control_")
+    ctx = multiprocessing.get_context("spawn")
+    with ctx.Pool(POOL_WORKERS) as pool, \
+            ctx.Pool(DES_WORKERS, initializer=lower_priority) as des_pool:
+        des_jobs = submit_des_rest(des_pool, os.path.join(ctl_dir, "cli"),
+                                   device.type)
         launches += phase("17 branches", run_branches, pool)
         phase("18 bcheck", check_branches, pool)
         efanin = phase("19 efanin", check_efanin, device)
@@ -3824,6 +4241,11 @@ def main() -> int:
         figure_launches = phase("31 figures", run_figures, pool)
         phase("32 fcheck", check_figures, pool)
         gate_launches = phase("33 gate", run_gate, pool)
+        phase("34 des", run_des_rest, *des_jobs)
+        # the trainer's processes ran in phase 34's pool: their results
+        # are read before the pools close
+        train_runs = des_jobs[0]["train"]
+        train_runs.wait()
     fanin_paths = {"batch grids": launches, "conflict": conflict_launches,
                    "megagrid": mega_launches, "figures": figure_launches,
                    "gate": gate_launches}
@@ -3905,7 +4327,8 @@ def main() -> int:
     phase("28 train", train_dense, device)
     torch.cuda.empty_cache()
     phase("29 smokes", train_smokes, device)
-    log(f"wall     phases 2-30 together: {sum(walls.values()):.2f} s")
+    phase("35 control", train_control, device, train_runs, ctl_dir)
+    log(f"wall     phases 2-35 together: {sum(walls.values()):.2f} s")
 
     record = {"name": "seg_fanin", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/seg_fanin_sm90.cu",

@@ -11,9 +11,9 @@ dtype}}}.  Names are the JAX tree's: ``params/embed``,
 checkpoint written by either package restores in the other.
 
 A checkpoint counts once its manifest is written and, with a ``coord``
-(any object with ``get(name)`` and ``put(name, obj)``: the JAX package
-commits through its PigPaxos ``CoordinationService``, which the port does
-not import), once ``ckpt/latest`` is committed there.  Without one,
+(any object with ``get(name)`` and ``put(name, obj)``; ``launch.train``
+hands it the port's PigPaxos ``runtime.CoordinationService``), once
+``ckpt/latest`` is committed there.  Without one,
 ``latest_step`` is the newest directory that has a manifest.  Saves copy
 the state to the host at once and may write in a background thread.
 """

@@ -3,9 +3,9 @@ injection, and measurement (throughput / latency percentiles / message loads).
 
 Copied from ``repro.core.cluster``; the workload shape it drives
 (``WorkloadConfig``, ``zipf_cdf``) lives in ``core/workload.py``, where the
-batch backend reads it too.  Engines ``"exact"`` and ``"fast"`` run;
-``engine="ref"`` (the reference's verbatim seed stack) and ``obs=`` (its
-observability layer) are not ported yet (ROADMAP item 13b) and raise.
+batch backend reads it too.  Engines ``"exact"``, ``"fast"`` and ``"ref"``
+(the seed stack of ``core/refengine.py``), and ``obs=`` (``repro_torch.obs``),
+as on the reference.
 
 Mirrors the paper's testbed (§5.1): closed-loop (synchronous) clients, a
 YCSB-like uniform workload over a 1000-key in-memory KV store, latency
@@ -28,9 +28,6 @@ from .node import Node
 from .paxos import PaxosNode
 from .pig import PigConfig
 from .workload import WorkloadConfig, zipf_cdf
-
-_NOT_PORTED = ("{what} is not ported yet (ROADMAP item 13b): the port's "
-               "discrete-event engines are 'exact' and 'fast'")
 
 
 class TaggedBytes(bytes):
@@ -491,8 +488,8 @@ class Cluster:
           seed implementation (golden-trace guarantee);
         * ``"fast"``  — flattened single-event-per-hop delivery; aggregate
           stats preserved, traces not bit-identical (big-N sweeps);
-        * ``"ref"``   — the reference's verbatim seed stack: not ported
-          (ROADMAP item 13b), raises ``ValueError``.
+        * ``"ref"``   — the seed engine kept verbatim in refengine.py
+          (golden-trace baseline and speedup benchmarks).
 
         ``record_history`` makes every client keep an invoke/response record
         per operation (with tagged put values) for the consistency auditor
@@ -509,24 +506,34 @@ class Cluster:
         behavior).  DES engines only — the verbatim seed stack has no
         batching surface.
 
-        ``obs`` enables the reference's observability layer, which is not
-        ported (ROADMAP item 13b): anything but ``None``/``False`` raises
-        ``ValueError``.
+        ``obs`` (a ``repro_torch.obs.ObsConfig``, a kwargs dict, or
+        ``True``) enables the observability layer: per-op distributed
+        tracing (``sample_rate``, event/RNG-neutral) and timeline metrics
+        sampling (``metrics_dt``).  DES engines only — the seed stack has
+        no hook surface.  Exposed afterwards as ``cluster.obs_tracer`` /
+        ``cluster.obs_timelines``; ``Stats.timelines`` carries the
+        exported series.
         """
-        if engine == "ref":
-            raise ValueError(_NOT_PORTED.format(
-                what="engine='ref' (the reference's verbatim seed stack)"))
-        if obs is not None and obs is not False:
-            raise ValueError(_NOT_PORTED.format(
-                what="obs= (the reference's observability layer)"))
         self.protocol = protocol
         self.n = n
         self.engine = engine
         self.record_history = record_history
         self.batch = batch
         self.pipeline_depth = pipeline_depth
+        if spare_nodes and engine == "ref":
+            raise ValueError("membership change is not supported by the "
+                             "verbatim seed stack (engine='ref') — use "
+                             "'exact' or 'fast'")
+        if (batch is not None or pipeline_depth) and engine == "ref":
+            raise ValueError("batching/pipelining is not supported by the "
+                             "verbatim seed stack (engine='ref') — use "
+                             "'exact' or 'fast'")
         if lease is not None:
             from .paxos import LeaseConfig
+            if engine == "ref":
+                raise ValueError("leader leases are not supported by the "
+                                 "verbatim seed stack (engine='ref') — use "
+                                 "'exact' or 'fast'")
             if protocol == "epaxos":
                 raise ValueError("leader leases need a distinguished leader "
                                  "— EPaxos is leaderless; use "
@@ -539,7 +546,15 @@ class Cluster:
         if self.topo.n < total:
             raise ValueError(f"topology has {self.topo.n} nodes but "
                              f"n + spare_nodes = {total}")
-        if engine in ("exact", "fast"):
+        if engine == "ref":
+            # the verbatim seed stack: seed scheduler/network AND seed
+            # protocol classes (golden-trace baseline, see refengine.py)
+            from .refengine import (RefEPaxosNode, RefNetwork, RefPaxosNode,
+                                    RefScheduler)
+            self.sched = RefScheduler(seed=seed)
+            self.net = RefNetwork(self.sched, self.topo, cost=cost)
+            paxos_cls, epaxos_cls = RefPaxosNode, RefEPaxosNode
+        elif engine in ("exact", "fast"):
             self.sched = Scheduler(seed=seed)
             self.net = Network(self.sched, self.topo, cost=cost,
                                fast_path=(engine == "fast"))
@@ -549,11 +564,24 @@ class Cluster:
         self.obs_cfg = None
         self.obs_tracer = None
         self.obs_timelines = None
+        if obs is not None and obs is not False:
+            if engine == "ref":
+                raise ValueError("observability is not supported by the "
+                                 "verbatim seed stack (engine='ref') — use "
+                                 "'exact' or 'fast'")
+            from ..obs import ObsConfig, Timelines, Tracer
+            cfg = ObsConfig.coerce(obs)
+            self.obs_cfg = cfg
+            self.obs_tracer = Tracer(cfg.sample_rate, cfg.max_spans)
+            self.net.tracer = self.obs_tracer
+            self.obs_timelines = Timelines(cfg.timeline_cap)
+            self.net.obs = self.obs_timelines
         self.pig = pig
         self.leader_timeout = leader_timeout
         peers = list(range(n))
         self.nodes: List[Node] = []
-        bkw = {"batch": batch, "pipeline_depth": pipeline_depth}
+        bkw = ({} if engine == "ref"
+               else {"batch": batch, "pipeline_depth": pipeline_depth})
         # per-node drifting clocks (lease runs only): rate uniform in
         # [-b, +b], a small offset for realism (offsets cancel in all
         # elapsed-local lease comparisons).  A SEPARATE generator — the
@@ -567,14 +595,17 @@ class Cluster:
             clock = [(0.0, 0.0)] * total
         for i in range(total):
             if protocol == "epaxos":
-                # stuck instances are probed after 2 leader timeouts (fault
-                # runs)
-                ekw = {"recovery_timeout": 2 * leader_timeout, **bkw}
+                # the seed class has no recovery surface; the new engines
+                # probe stuck instances after 2 leader timeouts (fault runs)
+                ekw = ({} if engine == "ref"
+                       else {"recovery_timeout": 2 * leader_timeout, **bkw})
                 self.nodes.append(epaxos_cls(i, self.net, self.sched, peers,
                                              **ekw))
             else:
-                pkw = dict(bkw, lease=lease, clock_rate=clock[i][0],
-                           clock_offset=clock[i][1])
+                pkw = dict(bkw)
+                if engine != "ref":
+                    pkw.update(lease=lease, clock_rate=clock[i][0],
+                               clock_offset=clock[i][1])
                 self.nodes.append(paxos_cls(i, self.net, self.sched, peers,
                                             pig=pig if protocol == "pigpaxos" else None,
                                             leader_timeout=leader_timeout,
@@ -683,6 +714,11 @@ class Cluster:
                 clients: int = 60, workload: Optional[WorkloadConfig] = None,
                 reset_stats_at_warmup: bool = True) -> "Stats":
         stop = warmup + duration
+        if (self.obs_timelines is not None
+                and self.obs_cfg.metrics_dt > 0.0):
+            from ..obs import install_sampler
+            install_sampler(self, self.obs_timelines, self.obs_cfg.metrics_dt,
+                            stop_at=stop + 0.2)
         self.add_clients(clients, workload, stop_at=stop)
         if reset_stats_at_warmup:
             self.sched.at(warmup, self.net.reset_stats)
@@ -731,7 +767,7 @@ class Stats:
     msg_out: np.ndarray = None
     flight: np.ndarray = None
     cpu_busy: Dict[int, float] = None
-    # exported observability timelines (repro.obs.Timelines.export()) when
+    # exported observability timelines (repro_torch.obs.Timelines.export()) when
     # the cluster ran with obs enabled; None otherwise
     timelines: Optional[dict] = None
 

@@ -1,10 +1,7 @@
 """The port's scenario catalog: the reference's (``repro.experiments.
 catalog``), copied with its specs and in its registration order — every
-paper reproduction (Tables 1-2, Figs. 8-17) and the post-paper families —
-apart from the 18 scenarios that need what the port has not ported yet
-(ROADMAP item 13b): the ``failover`` and ``lease`` families, the
-``overload`` scenarios with admission control and the traced ``obs``
-scenarios (``NOT_PORTED``).
+paper reproduction (Tables 1-2, Figs. 8-17) and the post-paper families,
+all 187 of its scenarios.
 
 The reference's ``Scenario`` defaults to ``backend="des"`` and the port's
 to ``"batch"``, so every entry here is built through ``_scenario``, which
@@ -21,18 +18,6 @@ from ..faults.plan import (add_node, crash_window, remove_node,
                            storm)
 from .registry import register
 from .scenario import Scenario
-
-# the reference's scenarios that need ROADMAP item 13b (the failover and
-# admission policies, the observability layer), by name
-NOT_PORTED = tuple(
-    [f"failover/detect={d}ms" for d in (50, 100, 200)]
-    + [f"overload/paxos/{x}" for x in ("adm", "adm+batch", "bursty/adm",
-                                       "diurnal/adm", "latadm")]
-    + ["overload/pigpaxos/adm", "overload/audit/adm",
-       "overload/audit/adm+batch"]
-    + [f"obs/{p}/traced" for p in ("pigpaxos", "paxos", "epaxos")]
-    + [f"obs/fairness/{r}" for r in ("rotating", "static")]
-    + [f"lease/expiry/d={d}ms" for d in (50, 400)])
 
 
 def _scenario(**kw) -> Scenario:
@@ -489,6 +474,22 @@ for proto, quick_skip in (("pigpaxos", False), ("epaxos", True)):
         duration=4.0, warmup=0.3, quick_duration=4.0,
         collect=("timeline",), quick_skip=quick_skip))
 
+# failover: the leader crashes at t=0.8 and NEVER recovers; recovery is
+# entirely up to the external failover policy (runtime.FailoverPolicy),
+# swept over its detection budget.  The measured unavailability window
+# decomposes as crash->detect (the swept knob) + election + client retry,
+# so unavail_ms should track detect_timeout nearly 1:1.
+for detect_ms in (50, 100, 200):
+    register(_scenario(
+        name=f"failover/detect={detect_ms}ms", protocol="pigpaxos", n=25,
+        pig=PigConfig(n_groups=3, prc=1),
+        workload=_RC_WL, faults=crash_window(0, 0.8), audit=True,
+        failover={"detect_timeout": detect_ms * 1e-3,
+                  "check_interval": 0.01, "successor": "next"},
+        engine="exact", grid_mode="curve", clients=(30,), seeds=(3,),
+        duration=2.2, warmup=0.3, quick_duration=1.2,
+        collect=("timeline",), quick_skip=(detect_ms == 200)))
+
 # ======================================================================
 # Leader-side batching + slot pipelining: closed-loop saturation
 # sweeps with the leader packing up to m commands per slot — one phase-2
@@ -549,26 +550,84 @@ for depth in (1, 2, 4):
 # ======================================================================
 _OVL_WL = dict(arrival="poisson", rate_hz=100.0, max_outstanding=32,
                reject_action="drop")
-# the admission-control cells (paired "adm", batched, latency-driven,
-# pigpaxos and audited) need ROADMAP item 13b: NOT_PORTED
+# token bucket at ~0.9x the unbatched saturation rate (the classic
+# headroom rule: admit below capacity so the queue never builds), plus a
+# queue-length guard for transients the bucket's burst lets through
+_OVL_ADM = {"max_queue": 32, "rate_hz": 1800.0, "burst": 64.0}
+for label, adm in (("noadm", None), ("adm", _OVL_ADM)):
+    register(_scenario(
+        name=f"overload/paxos/{label}", protocol="paxos", n=25,
+        engine="fast", workload=WorkloadConfig(**_OVL_WL),
+        admission=adm, grid_mode="curve", collect=("overload",),
+        clients=(10, 20, 40, 80), quick_clients=(20, 80),
+        seeds=(2,), duration=0.6, warmup=0.2, quick_duration=0.4))
+# batching raises the saturation point: the same 4x offered load that
+# floors the unbatched leader is absorbed outright with m=8 slots
 register(_scenario(
-    name="overload/paxos/noadm", protocol="paxos", n=25,
+    name="overload/paxos/adm+batch", protocol="paxos", n=25,
     engine="fast", workload=WorkloadConfig(**_OVL_WL),
-    admission=None, grid_mode="curve", collect=("overload",),
+    admission=_OVL_ADM, batch={"max_batch": 8, "max_delay_ms": 0.2},
+    grid_mode="curve", collect=("overload",),
+    clients=(20, 80), seeds=(2,),
+    duration=0.6, warmup=0.2, quick_duration=0.4))
+# bursty/diurnal traces: mean offered ~2x saturation with the bursty ON
+# phase running 8x of that for 10% of each period (transient overload the
+# token bucket's burst absorbs or sheds), and a diurnal peak at ~1.8x
+for label, adm in (("bursty", None), ("bursty/adm", _OVL_ADM)):
+    register(_scenario(
+        name=f"overload/paxos/{label}", protocol="paxos", n=25,
+        engine="fast",
+        workload=WorkloadConfig(arrival="bursty", rate_hz=100.0,
+                                max_outstanding=32, reject_action="drop",
+                                burst_factor=8.0, burst_on=0.1,
+                                burst_period=0.2),
+        admission=adm, grid_mode="curve", collect=("overload",),
+        clients=(40,), seeds=(2,),
+        duration=0.6, warmup=0.2, quick_duration=0.4))
+register(_scenario(
+    name="overload/paxos/diurnal/adm", protocol="paxos", n=25,
+    engine="fast",
+    workload=WorkloadConfig(arrival="diurnal", rate_hz=100.0,
+                            max_outstanding=32, reject_action="drop",
+                            diurnal_period=0.4, diurnal_amp=0.8),
+    admission=_OVL_ADM, grid_mode="curve", collect=("overload",),
+    clients=(40,), seeds=(2,),
+    duration=0.6, warmup=0.2, quick_duration=0.4, quick_skip=True))
+# latency-driven admission: shed on the observed p99 EWMA
+# against the same 50 ms SLO the goodput metric uses, head-to-head with
+# the queue-length policy above — the latadm_summary row compares
+# goodput and shed volume at 4x offered load
+register(_scenario(
+    name="overload/paxos/latadm", protocol="paxos", n=25,
+    engine="fast", workload=WorkloadConfig(**_OVL_WL),
+    admission={"slo_ms": 50.0, "check_interval": 0.005},
+    grid_mode="curve", collect=("overload",),
     clients=(10, 20, 40, 80), quick_clients=(20, 80),
     seeds=(2,), duration=0.6, warmup=0.2, quick_duration=0.4))
-# bursty trace: mean offered ~2x saturation with the ON phase running 8x
-# of that for 10% of each period
+# the family generalizes past plain paxos: Pig relays under overload
 register(_scenario(
-    name="overload/paxos/bursty", protocol="paxos", n=25,
-    engine="fast",
-    workload=WorkloadConfig(arrival="bursty", rate_hz=100.0,
-                            max_outstanding=32, reject_action="drop",
-                            burst_factor=8.0, burst_on=0.1,
-                            burst_period=0.2),
-    admission=None, grid_mode="curve", collect=("overload",),
-    clients=(40,), seeds=(2,),
-    duration=0.6, warmup=0.2, quick_duration=0.4))
+    name="overload/pigpaxos/adm", protocol="pigpaxos", n=25,
+    pig=PigConfig(n_groups=3, prc=1), engine="fast",
+    workload=WorkloadConfig(**_OVL_WL),
+    admission=_OVL_ADM, grid_mode="curve", collect=("overload",),
+    clients=(20, 80), seeds=(2,),
+    duration=0.6, warmup=0.2, quick_duration=0.4, quick_skip=True))
+# audited overload smoke (the CI cells): one admission cell and one
+# batched+admission cell with the linearizability auditor on — shedding,
+# bounce-retry loops and batch slots must not cost consistency
+register(_scenario(
+    name="overload/audit/adm", protocol="paxos", n=25,
+    engine="fast", workload=WorkloadConfig(**_OVL_WL),
+    admission=_OVL_ADM, audit=True, grid_mode="curve",
+    collect=("overload",), clients=(40,), seeds=(2,),
+    duration=0.5, warmup=0.2, quick_duration=0.4))
+register(_scenario(
+    name="overload/audit/adm+batch", protocol="paxos", n=25,
+    engine="fast", workload=WorkloadConfig(**_OVL_WL),
+    admission=_OVL_ADM, batch={"max_batch": 8, "max_delay_ms": 0.2},
+    audit=True, grid_mode="curve",
+    collect=("overload",), clients=(40,), seeds=(2,),
+    duration=0.5, warmup=0.2, quick_duration=0.4))
 
 # ======================================================================
 # Observability: traced cells for all three protocols (per-op
@@ -578,7 +637,28 @@ register(_scenario(
 # Gini — the paper's 'rotation spreads relay load' claim as a number), and
 # a batch-backend cell carrying the leader-backlog timeline.
 # ======================================================================
-# (the traced cells and the relay-fairness pair need ROADMAP item 13b)
+_OBS_FULL = {"sample_rate": 0.1, "metrics_dt": 0.01, "perfetto_limit": 2000}
+for proto, pig, qskip in (
+        ("pigpaxos", PigConfig(n_groups=5, prc=1), False),
+        ("paxos", None, False),
+        ("epaxos", None, True)):
+    register(_scenario(
+        name=f"obs/{proto}/traced", protocol=proto, n=25, pig=pig,
+        obs=_OBS_FULL, clients=(40,), seeds=(2,),
+        duration=0.6, warmup=0.25, quick_duration=0.3,
+        quick_skip=qskip))
+# fairness pair: same seed/load/groups, only relay rotation differs; the
+# fast engine's busy accounting is enough (no span tracing needed), so
+# sample_rate=0 keeps the cells cheap while metrics_dt still samples the
+# utilization timelines the heat-strip plot renders
+for rotate in (True, False):
+    register(_scenario(
+        name=f"obs/fairness/{'rotating' if rotate else 'static'}",
+        protocol="pigpaxos", n=25,
+        pig=PigConfig(n_groups=5, prc=1, rotate_relays=rotate),
+        engine="fast", obs={"sample_rate": 0.0, "metrics_dt": 0.01},
+        clients=(40,), seeds=(7,),
+        duration=0.6, warmup=0.25, quick_duration=0.3))
 register(_scenario(
     name="obs/pigpaxos/backlog/batch", protocol="pigpaxos", n=25,
     pig=PigConfig(n_groups=5, prc=1), backend="batch", batch_ok=True,
@@ -673,3 +753,23 @@ for proto, pig in (
         audit=True, grid_mode="curve", clients=(30,), seeds=(2,),
         duration=1.5, warmup=0.4, quick_duration=0.8,
         quick_skip=(proto == "paxos")))
+
+# lease: expiry/failover availability windows.  The leader crashes at
+# t=0.8 and never recovers; the failover policy elects a successor, but
+# follower lease PROMISES block the new leader's phase 1 until the old
+# lease drains — so the measured unavailability window must grow with the
+# lease duration (the safety/availability trade every lease system makes).
+# The auditor stays on: no read served across the failover may be stale.
+_LEASE_FO = {"detect_timeout": 0.05, "check_interval": 0.01,
+             "successor": "next"}
+for d in (50, 400):
+    register(_scenario(
+        name=f"lease/expiry/d={d}ms", protocol="pigpaxos", n=25,
+        pig=PigConfig(n_groups=3, prc=1),
+        workload=WorkloadConfig(read_ratio=0.5, read_path="lease",
+                                request_timeout=25e-3),
+        lease={"duration_ms": float(d)},
+        faults=crash_window(0, 0.8), audit=True, failover=_LEASE_FO,
+        grid_mode="curve", clients=(30,), seeds=(3,),
+        duration=2.2, warmup=0.3, quick_duration=1.2,
+        collect=("timeline",)))

@@ -4,10 +4,8 @@ Maps the runner's JSON artifact onto the reference's
 ``name,us_per_call,derived`` CSV rows, with each family's paper-claim
 summary (best-R comparison, saturation ratios, analytical-table
 validation, failure-transient drop, DES <-> batch cross-checks where both
-backends ran, ...): the summarizers of the 26 families the port runs.
-The reference's ``failover`` and ``lease`` summarizers come with ROADMAP
-item 13b; ``overload``'s gives the reference's rows for the scenarios
-the port registers, those without admission control.
+backends ran, ...).
+Every family of the reference's registry has its summarizer here.
 """
 from __future__ import annotations
 
@@ -711,6 +709,38 @@ def _rolling(arts, quick):
     return out
 
 
+def _failover(arts, quick):
+    """Failover-policy family: the leader dies for good and the external
+    detector promotes a successor — per-detect rows plus the sweep summary
+    (unavailability should track detect_timeout nearly 1:1)."""
+    out = []
+    sweep = {}
+    for name, art in sorted(arts.items()):
+        rep = _rep(art)
+        if rep is None:
+            continue
+        ex = rep.get("extras") or {}
+        fo = ex.get("failover_events") or []
+        detect = ((art.get("spec") or {}).get("failover") or {}) \
+            .get("detect_timeout")
+        if detect is not None and ex.get("unavail_ms") is not None:
+            sweep[detect * 1e3] = ex["unavail_ms"]
+        out.append(csv_row(
+            name, _wall(art), rep["count"],
+            f"tput={rep['throughput']:.0f}req/s "
+            f"unavail={ms(ex.get('unavail_ms')):.0f}ms "
+            f"failovers={len(fo)} "
+            f"retries={ex.get('client_retries', 0)} "
+            f"consistency={_consistency_tag(art)}"))
+    if len(sweep) >= 2:
+        parts = " ".join(f"{d:.0f}ms->{u:.0f}ms"
+                         for d, u in sorted(sweep.items()))
+        out.append(csv_row("failover/summary", 0, 1,
+                           f"unavail vs detect: {parts} "
+                           f"(expect unavail ~= detect + election)"))
+    return out
+
+
 def _gini(vals) -> float:
     """Gini coefficient of a non-negative sample (0 = perfectly even)."""
     vals = sorted(vals)
@@ -884,6 +914,39 @@ def _reads(arts, quick):
     return out
 
 
+def _lease(arts, quick):
+    """Lease-expiry family: availability windows across lease durations
+    under a leader crash + failover.  Follower lease promises block the
+    successor's phase 1 until the old lease drains, so unavail_ms must
+    GROW with the lease duration — the safety/availability trade, with
+    the read-aware auditor proving no stale read slipped through."""
+    out = []
+    unavail = {}
+    for name, art in sorted(arts.items()):
+        rep = _rep(art)
+        if rep is None:
+            continue
+        ex = rep.get("extras") or {}
+        rw = _rw_of(art) or {}
+        if "unavail_ms" in ex and "d=" in name:
+            unavail[name.split("d=")[1]] = ex["unavail_ms"]
+        out.append(csv_row(
+            name, _wall(art), rep["count"],
+            f"tput={rep['throughput']:.0f}req/s "
+            f"unavail={ms(ex.get('unavail_ms')):.0f}ms "
+            f"retries={ex.get('client_retries', 0)} "
+            f"lease_reads={rw.get('lease_reads', 0)} "
+            f"consistency={_consistency_tag(art)}"))
+    if {"50ms", "400ms"} <= set(unavail):
+        ok = unavail["400ms"] > unavail["50ms"]
+        out.append(csv_row(
+            "lease/expiry/summary", 0, 1,
+            f"unavail d=50ms:{unavail['50ms']:.0f}ms "
+            f"d=400ms:{unavail['400ms']:.0f}ms — a held lease blocks the "
+            f"successor until it drains "
+            f"({'window grows with duration, as required' if ok else 'VIOLATION: window did not grow'})"))
+    return out
+
 
 SUMMARIZERS = {
     "table1": _table1, "table2": _table2,
@@ -894,8 +957,9 @@ SUMMARIZERS = {
     "wan": _wan, "scale": _scale,
     "batching": _batching, "overload": _overload,
     "avail": _avail, "storm": _storm,
-    "reconfig": _reconfig, "rolling": _rolling,
-    "megagrid": _megagrid, "obs": _obs, "reads": _reads,
+    "reconfig": _reconfig, "rolling": _rolling, "failover": _failover,
+    "megagrid": _megagrid, "obs": _obs,
+    "reads": _reads, "lease": _lease,
 }
 
 

@@ -2,7 +2,7 @@
 
     python -m repro_torch.experiments.run --filter 'scale/batch/*' \\
         [--full] [--device cpu] [--backend batch|des] [--processes N] \\
-        [--rows] --json PATH
+        [--rows] [--plot DIR] [--trace OUT.json] --json PATH
 
 Runs the selected scenarios, the discrete-event ones on the host (in
 ``--processes`` workers) and the batch ones on the card (CUDA by default),
@@ -12,9 +12,16 @@ and writes the ``repro-experiments/v1`` artifact, which
 the batch backend (the paper's Fig. 8 and Tables 1-2 among them),
 ``--backend des`` the batch ones to the discrete-event engines;
 ``--rows`` prints the report's ``name,us_per_call,derived`` rows after the
-table, e.g.
+table; ``--plot DIR`` renders the throughput-vs-load, latency-CDF,
+utilization and critical-path SVGs of every family that ran
+(``experiments/plot.py``), and ``--trace OUT.json`` merges the Perfetto
+trace events of every traced unit (the ``obs`` scenarios) into one file
+that https://ui.perfetto.dev opens, as the reference's benchmark CLI does;
+e.g.
 
     python -m repro_torch.experiments.run --filter fig9 --processes 4 --rows
+    python -m repro_torch.experiments.run --filter 'obs/*/traced' \\
+        --plot plots --trace trace.json
     python -m repro_torch.experiments.run --filter fig8,table1,table2 \\
         --backend batch --full --rows
 """
@@ -24,7 +31,7 @@ import argparse
 import json
 import sys
 
-from . import registry, report, runner
+from . import plot, registry, report, runner
 
 
 def _num(x, width, digits) -> str:
@@ -51,6 +58,13 @@ def main(argv=None) -> int:
                          "(0: inline)")
     ap.add_argument("--rows", action="store_true",
                     help="print the report rows of the artifact")
+    ap.add_argument("--plot", default=None, metavar="DIR",
+                    help="render throughput-vs-load / latency-CDF SVGs for "
+                         "every family that ran (dependency-free)")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write the Perfetto trace-event JSON collected "
+                         "from every traced scenario unit that ran (open "
+                         "at https://ui.perfetto.dev)")
     ap.add_argument("--json", default=None, help="write the artifact here")
     args = ap.parse_args(argv)
     art = runner.run_scenarios(registry.select(args.filter),
@@ -72,6 +86,25 @@ def main(argv=None) -> int:
     if args.rows:
         for row in report.rows_for_artifact(art):
             print(row)
+    if args.plot:
+        written = plot.render_artifact(art, args.plot)
+        print(f"# wrote {len(written)} plots to {args.plot}")
+    if args.trace:
+        # merge the per-unit Perfetto events the traced scenarios embedded
+        # in their obs extras into one ui.perfetto.dev-openable file
+        evs, traced_units = [], 0
+        for sa in art["scenarios"]:
+            for u in sa["units"]:
+                pf = ((u.get("extras") or {}).get("obs") or {}) \
+                    .get("perfetto")
+                if pf and pf.get("events"):
+                    evs.extend(pf["events"])
+                    traced_units += 1
+        with open(args.trace, "w") as f:
+            json.dump({"traceEvents": evs, "displayTimeUnit": "ms",
+                       "otherData": {"traced_units": traced_units}}, f)
+        print(f"# wrote {len(evs)} trace events from {traced_units} "
+              f"traced units to {args.trace}")
     if args.json:
         with open(args.json, "w") as f:
             json.dump(art, f, indent=1)

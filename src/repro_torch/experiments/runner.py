@@ -28,10 +28,10 @@ Every run emits the reference's artifact schema
 
 A unit's fields and ``extras`` are the reference's, unit for unit:
 per-node message loads, the flight matrix, the completion ``timeline``,
-the overload metrics, the read/write split, the availability metrics of a
-fault plan and, for an audited unit, the linearizability verdict.  The
-reference's ``failover``, ``admission`` and ``obs`` extras come with
-ROADMAP item 13b (``Scenario`` refuses those specs on the DES).
+the overload metrics, the admission counters, the read/write split, the
+availability metrics of a fault plan, the failover policy's promotions,
+the ``obs`` section of a traced unit and, for an audited unit, the
+linearizability verdict.
 
 ``backend_override="batch"`` switches every ``batch_ok`` scenario to the
 batch backend and ``"des"`` forces every batch scenario onto the DES, as
@@ -56,6 +56,10 @@ from ..core.cluster import Cluster
 from ..core.paxos import BatchConfig
 from ..faults import apply_plan, audit_cluster
 from ..faults.plan import jsonify_events
+from ..obs import obs_artifact_section
+from ..runtime.policy import (AdmissionPolicy, FailoverPolicy,
+                              LatencyAdmissionPolicy, attach_admission,
+                              attach_failover, attach_latency_admission)
 from .scenario import Scenario, build_topology
 
 ARTIFACT_SCHEMA = "repro-experiments/v1"
@@ -86,11 +90,27 @@ def _run_unit(payload) -> Tuple[dict, int, float]:
                 leader_timeout=sc.leader_timeout, engine=sc.engine,
                 record_history=sc.audit, spare_nodes=sc.spare_nodes,
                 batch=bc, pipeline_depth=sc.pipeline_depth,
+                obs=(dict(sc.obs) if sc.obs is not None else None),
                 lease=(dict(sc.lease) if sc.lease is not None else None))
     plan = sc.fault_plan()
     evs = []
     if plan is not None:
         evs = apply_plan(c, plan, horizon=warmup + duration + 0.5)
+    fo_events = None
+    if sc.failover is not None:
+        fo_events = attach_failover(c, FailoverPolicy(**sc.failover),
+                                    stop_at=warmup + duration)
+    adm_stats = None
+    if sc.admission is not None:
+        if "slo_ms" in sc.admission:
+            adm_stats = attach_latency_admission(
+                c, LatencyAdmissionPolicy(**sc.admission),
+                stop_at=warmup + duration)
+        else:
+            adm_stats = attach_admission(c, AdmissionPolicy(**sc.admission),
+                                         stop_at=warmup + duration)
+        # the metrics sampler's shed_total gauge reads these counters
+        c.admission_stats = adm_stats
     st = c.measure(duration=duration, warmup=warmup, clients=clients,
                    workload=sc.workload)
     unit = {
@@ -141,6 +161,8 @@ def _run_unit(payload) -> Tuple[dict, int, float]:
                                     for cl in c.clients)
         extras["client_rejected"] = sum(getattr(cl, "rejected", 0)
                                         for cl in c.clients)
+    if adm_stats is not None:
+        extras["admission"] = dict(adm_stats)
     rw = (c.read_write_split()
           if sc.workload is not None and sc.workload.read_ratio is not None
           else None)
@@ -179,6 +201,12 @@ def _run_unit(payload) -> Tuple[dict, int, float]:
                                          zip(w, w[1:])) * 1e3)})
         if per_fault:
             extras["per_fault_unavail_ms"] = per_fault
+    if fo_events is not None:
+        extras["failover_events"] = [
+            {"t": _f(e["t"]), "from": e["from"], "to": e["to"]}
+            for e in fo_events]
+    if sc.obs is not None:
+        extras["obs"] = obs_artifact_section(c)
     if sc.audit:
         res = audit_cluster(c)
         unit["consistency"] = "ok" if res.ok else "violation"

@@ -1,18 +1,17 @@
 """Declarative experiment specs (port of
 ``repro.experiments.scenario.Scenario``): every field of the reference's
 spec, in its order, so ``spec_dict`` records the same keys, and its
-registration-time checks, word for word, except the check of the ``obs``
-knobs' values, which configure the discrete-event tracer.
+registration-time checks, word for word.
 
 A scenario runs on one of two backends.  ``backend="des"`` runs one
 discrete-event ``Cluster`` per (clients, seed) unit, where every field
 takes effect (``audit``, ``engine``, ``spare_nodes``, ``pipeline_depth``,
 ``batch``, ``lease``, the fault plan, ``collect``), as on the reference.
 ``backend="batch"`` (the port's default; the reference's is ``"des"``)
-runs the whole grid as one batch on the card.  A discrete-event scenario
-that asks for what the port has not yet ported (``obs``, ``failover``,
-``admission``, or ``engine="ref"``) is refused here, naming ROADMAP item
-13b."""
+runs the whole grid as one batch on the card.  The discrete-event engines
+take every knob: ``obs`` (tracing and timelines, ``repro_torch.obs``),
+``failover`` and ``admission`` (``repro_torch.runtime.policy``) and
+``engine="ref"`` (the seed stack)."""
 from __future__ import annotations
 
 import dataclasses
@@ -59,7 +58,7 @@ class Scenario:
     seeds: Tuple[int, ...] = (2,)
     duration: float = 0.6
     warmup: float = 0.3
-    engine: str = "exact"                    # "exact" | "fast" (DES engine)
+    engine: str = "exact"                    # "exact" | "fast" | "ref"
     # "batch" — the whole clients x seeds grid is one batch-backend run
     # (the port's default; the reference's is "des");
     # "des"   — one Cluster run per (clients, seed) unit (pool-parallel)
@@ -70,7 +69,7 @@ class Scenario:
     leader_timeout: float = 50e-3
     # spare nodes for membership events (DES only)
     spare_nodes: int = 0
-    # failover policy kwargs (DES only; not ported yet, ROADMAP item 13b)
+    # failover policy kwargs (runtime.FailoverPolicy; DES only)
     failover: Optional[dict] = None
     # leader-side batching kwargs ({"max_batch": m, "max_delay_ms": ms}):
     # max_batch maps to vectorsim's batch_m (the saturated-batch model, so
@@ -82,10 +81,12 @@ class Scenario:
     # b, "lease_safety": True}), required for read_path="lease"; the batch
     # backend models an uncontested lease held for the whole run
     lease: Optional[dict] = None
-    # admission-control kwargs (DES only; not ported yet, ROADMAP 13b)
+    # admission-control kwargs (runtime.AdmissionPolicy, or
+    # LatencyAdmissionPolicy when "slo_ms" is set; DES only)
     admission: Optional[dict] = None
-    # observability kwargs: the batch backend emits the leader-backlog
-    # series when set
+    # observability kwargs (obs.ObsConfig): DES units get span tracing,
+    # timeline sampling and an "obs" extras section; batch units get the
+    # leader-backlog series only
     obs: Optional[dict] = None
     # extras: "per_node_msgs" | "timeline" | "flight" | "overload"
     collect: Tuple[str, ...] = ()
@@ -99,17 +100,6 @@ class Scenario:
     def __post_init__(self):
         if self.backend not in ("des", "batch"):
             raise ValueError(f"unknown backend {self.backend!r}")
-        if self.backend == "des":
-            missing = [what for what, on in (
-                ("obs", self.obs is not None),
-                ("failover", self.failover is not None),
-                ("admission", self.admission is not None),
-                ("engine='ref'", self.engine == "ref")) if on]
-            if missing:
-                raise ValueError(
-                    f"scenario {self.name!r} needs {', '.join(missing)} on "
-                    f"the discrete-event engines, which repro_torch has not "
-                    f"ported yet (ROADMAP item 13b)")
         for ev in self.failures:
             validate_event(tuple(ev))
         plan = self.fault_plan()
@@ -162,6 +152,9 @@ class Scenario:
                                  "kernel only (single-leader backlog "
                                  "series) — traced EPaxos runs need the "
                                  "DES")
+            # registration-time validation of the knob values themselves
+            from ..obs import ObsConfig
+            ObsConfig(**self.obs)
         rr = (self.workload.read_ratio
               if self.workload is not None else None)
         rpath = (self.workload.read_path

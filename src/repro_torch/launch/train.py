@@ -1,20 +1,22 @@
 """End-to-end training driver, the port of ``repro.launch.train``: the
 data stream, the train step (remat, impl ``"auto"`` as the JAX driver
-hard-codes), AdamW and checkpoints, with the JAX driver's flags and
-defaults plus ``--device`` (default: the CUDA device).
+hard-codes), AdamW, PigPaxos-committed checkpoints and heartbeat
+monitoring, with the JAX driver's flags and defaults plus ``--device``
+(default: the CUDA device).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-3b \
       --smoke --steps 5 [--device cpu]
 
-Left out, all on the JAX driver's discrete-event side and not ported: the
-``HeartbeatMonitor`` (straggler and dead-pod detection), the
-``ElasticController`` (re-mesh decisions), and the commit of each
-checkpoint through the PigPaxos ``CoordinationService``.  Here a
-checkpoint counts once its manifest is written (``CheckpointManager`` with
-``coord=None``), and ``--resume`` restores the newest such step.  Each
-logged step prints its wall ms (the device synchronised) and tokens/s.
-The default ``--ckpt-dir`` lies under the temporary directory
-(``TMPDIR``).
+A checkpoint counts once the 5-node PigPaxos ``CoordinationService`` (2
+relay groups, the gray list on; simulated on the host) has committed
+``ckpt/latest``; ``--resume`` restores the committed step.  The service
+journals its commits to ``coord.journal`` in ``--ckpt-dir`` and a
+restarted driver's service commits them again, so the committed step
+outlives the process (the JAX driver's service does not: its
+``--resume`` in a new process finds nothing committed).  Every step beats
+the ``HeartbeatMonitor`` (one pod).  Each logged step prints its wall ms
+(the device synchronised) and tokens/s.  The default ``--ckpt-dir`` lies
+under the temporary directory (``TMPDIR``).
 """
 from __future__ import annotations
 
@@ -31,12 +33,14 @@ from ..configs import get_config, get_smoke_config
 from ..data import DataConfig, SyntheticLMStream
 from ..device import resolve_device
 from ..optim import AdamWConfig
+from ..runtime import CoordinationService, HeartbeatMonitor
 from ..train import TrainOptions, build_train_step, init_train_state
 
 
 def main(argv=None) -> dict:
-    """Runs the driver; returns {"start", "losses", "latest"}: the step
-    it started from, each step's loss, the newest checkpoint's step."""
+    """Runs the driver; returns {"start", "losses", "latest",
+    "committed"}: the step it started from, each step's loss, the
+    committed checkpoint's step and its ``ckpt/latest`` record."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--smoke", action="store_true",
@@ -59,7 +63,12 @@ def main(argv=None) -> dict:
     print(f"arch={cfg.name} family={cfg.family} "
           f"params={cfg.param_count() / 1e6:.1f}M device={device}")
 
-    mgr = CheckpointManager(args.ckpt_dir, coord=None, async_save=True)
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    coord = CoordinationService(
+        n_nodes=5, n_groups=2, seed=args.seed,
+        journal=os.path.join(args.ckpt_dir, "coord.journal"))
+    mgr = CheckpointManager(args.ckpt_dir, coord=coord, async_save=True)
+    hb = HeartbeatMonitor(timeout=60.0)
     data = DataConfig(global_batch=args.batch, seq_len=args.seq,
                       seed=args.seed)
     stream = SyntheticLMStream(cfg, data, device=device)
@@ -76,7 +85,7 @@ def main(argv=None) -> dict:
         got = mgr.restore(state)
         if got is not None:
             state, start = got
-            print(f"resumed from step {start}")
+            print(f"resumed from step {start}, the committed checkpoint")
 
     losses = []
     tokens = args.batch * args.seq
@@ -85,6 +94,7 @@ def main(argv=None) -> dict:
         state, metrics = step_fn(state, stream.batch_at(s))
         loss = float(metrics["loss"])          # waits for the device
         dt = time.perf_counter() - t0
+        hb.beat(pod=0, step_time=dt)
         losses.append(loss)
         if (s + 1) % 10 == 0 or s == start:
             print(f"step {s + 1:4d} loss={loss:.4f} "
@@ -94,12 +104,14 @@ def main(argv=None) -> dict:
         if (s + 1) % args.ckpt_every == 0:
             mgr.save(s + 1, state)
     mgr.wait()
-    latest = mgr.latest_step()
+    committed = coord.get("ckpt/latest")
+    latest = None if committed is None else committed["step"]
     if losses:
         print(f"final loss {np.mean(losses[-5:]):.4f} "
               f"(first 5: {np.mean(losses[:5]):.4f}); "
-              f"latest checkpoint: step {latest}")
-    return {"start": start, "losses": losses, "latest": latest}
+              f"last committed checkpoint: {committed}")
+    return {"start": start, "losses": losses, "latest": latest,
+            "committed": committed}
 
 
 if __name__ == "__main__":

@@ -161,10 +161,26 @@ def test_membership_and_leader_change_equal_reference():
 
 
 def test_unported_engine_and_obs_raise_naming_item_13b():
+    """Once refused, naming ROADMAP item 13b: ``engine="ref"`` (the seed
+    stack) and ``obs=`` (tracing and timelines, with and without the
+    sampler) now run and equal the reference's runs bit for bit; the
+    seed stack's refusals are the reference's, word for word."""
     for kw in (dict(engine="ref"), dict(obs=True),
-               dict(obs={"sample_rate": 0.1})):
-        with pytest.raises(ValueError, match="ROADMAP item 13b"):
-            T.Cluster("paxos", 5, **kw)
+               dict(obs={"sample_rate": 0.1}),
+               dict(obs={"sample_rate": 1.0, "metrics_dt": 0.01})):
+        _same(_build(R, "pigpaxos", 5, pig=dict(n_groups=2), **kw),
+              _build(T, "pigpaxos", 5, pig=dict(n_groups=2), **kw))
+    for kw in (dict(obs=True), dict(spare_nodes=1),
+               dict(batch=dict(max_batch=4)), dict(pipeline_depth=2),
+               dict(lease={"duration_ms": 100.0})):
+        msgs = []
+        for M in (R, T):
+            if "batch" in kw:
+                kw = dict(batch=M.BatchConfig(max_batch=4))
+            with pytest.raises(ValueError) as e:
+                M.Cluster("paxos", 5, engine="ref", **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1] and "verbatim seed stack" in msgs[1]
     with pytest.raises(ValueError, match="unknown engine"):
         T.Cluster("paxos", 5, engine="turbo")
     T.Cluster("paxos", 5, obs=False)        # the reference's "off"

@@ -1,8 +1,8 @@
 """The port's scenario layer on the discrete-event engines, against the
 reference's, on the CPU: quick artifacts unit for unit (all but
 ``wall_s``), serial and pooled; ``backend_override="des"``; the registry
-(the reference's names minus the 18 that need ROADMAP item 13b, which
-raise naming it); the summarizers of the discrete-event families, row for
+(all 187 of the reference's names, the 18 that once needed ROADMAP item
+13b among them); the summarizers of the discrete-event families, row for
 row on one artifact; and the unchanged regression gate on the port's
 fidelity and speedup pairs (the batch halves on the CPU)."""
 import dataclasses
@@ -18,7 +18,6 @@ from repro.experiments import report as ref_report
 from repro.experiments import runner as ref_runner
 from repro_torch.core import PigConfig, WorkloadConfig
 from repro_torch.experiments import registry, report, runner
-from repro_torch.experiments.catalog import NOT_PORTED
 from repro_torch.experiments.scenario import Scenario
 from repro_torch.faults.plan import FaultPlan
 
@@ -124,23 +123,40 @@ def _port_spec(ref_sc):
     return kw
 
 
+# the reference's scenarios that needed ROADMAP item 13b (the failover and
+# admission policies, the observability layer), by name
+ITEM_13B = tuple(
+    [f"failover/detect={d}ms" for d in (50, 100, 200)]
+    + [f"overload/paxos/{x}" for x in ("adm", "adm+batch", "bursty/adm",
+                                       "diurnal/adm", "latadm")]
+    + ["overload/pigpaxos/adm", "overload/audit/adm",
+       "overload/audit/adm+batch"]
+    + [f"obs/{p}/traced" for p in ("pigpaxos", "paxos", "epaxos")]
+    + [f"obs/fairness/{r}" for r in ("rotating", "static")]
+    + [f"lease/expiry/d={d}ms" for d in (50, 400)])
+
+
 def test_registry_is_the_reference_minus_item_13b():
+    """The registry is the reference's whole: the 18 scenarios that once
+    needed ROADMAP item 13b are registered, with the reference's specs,
+    and ``catalog.NOT_PORTED`` is gone."""
+    from repro_torch.experiments import catalog
     ref = ref_registry.names()
-    assert registry.names() == [n for n in ref if n not in NOT_PORTED]
-    assert len(registry.names()) == len(ref) - 18 == 169
+    assert registry.names() == ref and len(ref) == 187
+    assert not hasattr(catalog, "NOT_PORTED")
     fams = {}
-    for n in NOT_PORTED:
+    for n in ITEM_13B:
         fams[n.split("/")[0]] = fams.get(n.split("/")[0], 0) + 1
     assert fams == {"failover": 3, "lease": 2, "overload": 8, "obs": 5}
-    for name in NOT_PORTED:
-        with pytest.raises(KeyError, match="ROADMAP item 13b"):
-            registry.get(name)
-        with pytest.raises(ValueError, match="ROADMAP item 13b"):
-            Scenario(**_port_spec(ref_registry.get(name)))
+    for name in ITEM_13B:
+        got = registry.get(name)
+        assert got == Scenario(**_port_spec(ref_registry.get(name)))
+        assert got.spec_dict() == ref_registry.get(name).spec_dict()
     for fam in ("failover", "lease"):
-        with pytest.raises(ValueError, match="ROADMAP item 13b"):
-            registry.select(fam)
-    # the rest rebuilt from the reference's objects equal the catalog's
+        assert [sc.name for sc in registry.select(fam)] == \
+            [sc.name for sc in ref_registry.select(fam)]
+    # every scenario rebuilt from the reference's objects equals the
+    # catalog's
     for name in registry.names():
         got = Scenario(**_port_spec(ref_registry.get(name)))
         assert got == registry.get(name), name
@@ -151,7 +167,8 @@ def test_registry_is_the_reference_minus_item_13b():
 DES_FAMILIES = ["fig9", "fig10", "fig11", "fig12", "fig13", "fig14",
                 "fig15", "fig16", "fig17", "openloop", "storm", "reconfig",
                 "rolling", "overload", "batching", "reads", "avail", "zipf",
-                "conflict", "wan", "table1", "table2", "fig8"]
+                "conflict", "wan", "table1", "table2", "fig8", "failover",
+                "lease", "obs"]
 
 
 def _short(sc):

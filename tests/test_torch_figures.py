@@ -6,8 +6,8 @@ discrete-event scenarios marked ``batch_ok`` to the batch backend, as the
 reference's runner does: the same switched spec, the same filtered
 ``collect``, ``backend="batch"`` and ``consistency="model"`` in the
 artifact; ``backend_override="des"`` forces the batch scenarios onto the
-port's discrete-event engines, and a scenario that needs what the port
-has not ported yet (ROADMAP item 13b) raises.
+port's discrete-event engines (an ``obs`` scenario among them, with its
+traced ``obs`` extras), as the reference's does.
 
 Parity per cell is held as ``figures_parity`` states; the Fig. 8 cells
 here are the rotating and static relays at R=1 (a chaotic cell and a
@@ -28,6 +28,7 @@ from figures_parity import check_cell, port_art, ref_art
 from repro.core import PigConfig as RefPig
 from repro.core import vectorsim as rvs
 from repro.experiments import registry as ref_registry
+from repro.experiments import runner as ref_runner
 from repro.experiments.scenario import Scenario as RefScenario
 from repro_torch.convert import cells_from_numpy
 from repro_torch.core import vectorsim as tvs
@@ -87,11 +88,23 @@ def test_override_artifact_has_the_reference_schema():
 def test_des_scenarios_raise_instead_of_skipping():
     sc = registry.get("fig8/rotating/R=1")
     # forced onto the DES, a batch scenario that needs the observability
-    # layer raises, naming the roadmap item that brings it
-    obs = registry.get("obs/pigpaxos/backlog/batch")
-    with pytest.raises(ValueError, match="ROADMAP item 13b"):
-        runner.run_scenarios([obs], quick=True, backend_override="des",
-                             device="cpu")
+    # layer runs there, as on the reference (a short window: the obs
+    # extras are the point), and equals the reference's run
+    short = dict(quick_duration=0.05, quick_warmup=0.02, quick_seeds=(2,))
+    obs = dataclasses.replace(registry.get("obs/pigpaxos/backlog/batch"),
+                              **short)
+    ref = dataclasses.replace(
+        ref_registry.get("obs/pigpaxos/backlog/batch"), **short)
+    got = runner.run_scenarios([obs], quick=True, backend_override="des",
+                               device="cpu")["scenarios"]
+    want = ref_runner.run_scenarios([ref], quick=True,
+                                    backend_override="des")["scenarios"]
+    (ps,), (rs,) = got, want
+    assert ps["backend"] == rs["backend"] == "des"
+    assert ps["run"]["device"] == "host"
+    for u, v in zip(ps["units"], rs["units"]):
+        assert {**u, "wall_s": 0} == {**v, "wall_s": 0}
+    assert ps["units"][0]["extras"]["obs"]["cpu_busy_s"]
     with pytest.raises(ValueError, match="unknown backend override"):
         runner.run_scenarios([sc], quick=True, backend_override="gpu",
                              device="cpu")
@@ -103,17 +116,28 @@ def test_des_scenarios_raise_instead_of_skipping():
 
 
 def test_a_des_scenario_that_is_not_batch_ok_is_refused():
-    # the port runs every discrete-event scenario now; it refuses those
-    # that need ROADMAP item 13b (obs, failover, admission, engine="ref")
+    # the port runs every discrete-event scenario, those with obs,
+    # failover, admission or engine="ref" among them, with the
+    # reference's spec; only the batch backend refuses them
     sc = Scenario(name="fig9/paxos", protocol="paxos", n=25, backend="des")
     assert sc.spec_dict() == RefScenario(name="fig9/paxos", protocol="paxos",
                                          n=25).spec_dict()
     for kw in (dict(obs={"sample_rate": 0.1}),
                dict(failover={"detect_timeout": 0.05}),
                dict(admission={"max_queue": 32}), dict(engine="ref")):
-        with pytest.raises(ValueError, match="ROADMAP item 13b"):
-            Scenario(name="fig9/paxos", protocol="paxos", n=25,
-                     backend="des", **kw)
+        got = Scenario(name="fig9/paxos", protocol="paxos", n=25,
+                       backend="des", **kw)
+        assert got.spec_dict() == RefScenario(
+            name="fig9/paxos", protocol="paxos", n=25, **kw).spec_dict()
+        if "engine" in kw or "obs" in kw:     # the batch backend takes
+            continue                           # these (obs: its backlog)
+        msgs = []
+        for S in (Scenario, RefScenario):
+            with pytest.raises(ValueError) as e:
+                S(name="fig9/paxos", protocol="paxos", n=25,
+                  backend="batch", **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
     with pytest.raises(ValueError, match="unknown backend"):
         Scenario(name="x", protocol="paxos", n=25, backend="sim")
     # the batch checks run again on the switched spec

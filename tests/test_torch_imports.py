@@ -42,7 +42,15 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
               "repro_torch.core.quorums", "repro_torch.core.node",
               "repro_torch.core.pig", "repro_torch.core.paxos",
               "repro_torch.core.pigpaxos", "repro_torch.core.epaxos",
-              "repro_torch.core.cluster", "repro_torch.faults.audit"):
+              "repro_torch.core.cluster", "repro_torch.faults.audit",
+              "repro_torch.core.refengine", "repro_torch.obs",
+              "repro_torch.obs.config", "repro_torch.obs.trace",
+              "repro_torch.obs.metrics", "repro_torch.obs.critpath",
+              "repro_torch.obs.export", "repro_torch.runtime",
+              "repro_torch.runtime.policy",
+              "repro_torch.runtime.coordination",
+              "repro_torch.runtime.elastic",
+              "repro_torch.experiments.plot"):
         assert m in mods, m
     code = (
         "import importlib, sys\n"

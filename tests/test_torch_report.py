@@ -3,7 +3,7 @@ paper's analytical model (Eq. 1-3, Tables 1-2, the best-R rules) and the
 report rows of the 12 families of the backend override, from the same
 artifact through both packages' ``rows_for_artifact``, text for text (the
 discrete-event families' rows: ``test_torch_des_runner.py``); the CLI's
-``--backend`` and ``--rows``.
+``--backend``, ``--rows``, ``--plot`` and ``--trace``.
 
 The artifacts are the port's own runs of every scenario of a family
 through the backend override, at a short window (the rows depend on the
@@ -12,6 +12,7 @@ artifact, not on how long it ran), one seed and one client count;
 recovery at 1.2 s), so its row carries the dip depth.
 """
 import dataclasses
+import json
 
 import pytest
 
@@ -93,14 +94,13 @@ def test_family_rows_runs_the_families(monkeypatch):
     assert seen == {"families": ["fig8"], "quick": True,
                     "filter_expr": "fig8/static/*",
                     "backend_override": "batch", "device": "cpu"}
-    # every family the port registers; failover and lease need ROADMAP
-    # item 13b
-    assert sorted(report.SUMMARIZERS) == sorted(
-        set(ref_report.SUMMARIZERS) - {"failover", "lease"})
+    # every family of the reference's, failover and lease (once ROADMAP
+    # item 13b) among them
+    assert list(report.SUMMARIZERS) == list(ref_report.SUMMARIZERS)
     assert set(FAMILIES) < set(report.SUMMARIZERS)
 
 
-def test_cli_backend_and_rows(capsys):
+def test_cli_backend_and_rows(capsys, monkeypatch, tmp_path):
     name = "table2/validate/R=1"
     assert run.main(["--filter", name, "--backend", "batch", "--device",
                      "cpu", "--rows"]) == 0
@@ -114,6 +114,21 @@ def test_cli_backend_and_rows(capsys):
     assert out[1].startswith(name) and " host events=" in out[1]
     assert [line.split(",")[0] for line in out[2:]] == \
         ["table2/R=1", "table2/R=2", "table2/R=4"]
-    with pytest.raises(ValueError, match="ROADMAP item 13b"):
-        run.main(["--filter", "obs/pigpaxos/backlog/batch", "--backend",
-                  "des", "--device", "cpu"])
+    # an obs scenario forced onto the DES runs there (once it raised,
+    # naming ROADMAP item 13b); its plots and trace land where asked
+    sc = dataclasses.replace(registry.get("obs/paxos/traced"),
+                             quick_duration=0.02, quick_warmup=0.01)
+    monkeypatch.setattr(run.registry, "select", lambda flt: [sc])
+    plots, trace = tmp_path / "plots", tmp_path / "trace.json"
+    assert run.main(["--filter", "obs/paxos/traced", "--device", "cpu",
+                     "--rows", "--plot", str(plots), "--trace",
+                     str(trace)]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert out[1].startswith("obs/paxos/traced") and " host " in out[1]
+    assert out[2].split(",")[0] == "obs/paxos/traced"
+    assert any(line.startswith("# wrote") and "plots" in line
+               for line in out)
+    assert sorted(p.name for p in plots.iterdir()) == [
+        "obs_critpath.svg", "obs_latency_cdf.svg", "obs_util_heat.svg"]
+    doc = json.loads(trace.read_text())
+    assert doc["otherData"]["traced_units"] == 1 and doc["traceEvents"]

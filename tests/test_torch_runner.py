@@ -32,19 +32,19 @@ def arts():
 
 def test_catalog_is_the_scale_batch_family():
     """The port registers the reference's scenarios in the reference's
-    order and with its specs: all of them but the 18 that need ROADMAP
-    item 13b (the failover and lease families, the overload scenarios
-    with admission control, the traced obs scenarios).  Among them, the
+    order and with its specs: all 187 of them, the 18 that once needed
+    ROADMAP item 13b among them (the failover and lease families, the
+    overload scenarios with admission control, the traced obs
+    scenarios).  Among them, the
     35 ``backend="batch"`` ones (the 9 ``scale/batch/*``, the 8 EPaxos
     ``conflict/*/batch``, the 4 ``megagrid/slice/*`` and the 14 of the
     wan, avail, batching, obs and reads families) and the 44
     discrete-event scenarios marked ``batch_ok`` (Fig. 8, Tables 1-2,
     zipf, conflict, wan and avail), which the backend override runs."""
-    from repro_torch.experiments.catalog import NOT_PORTED
-    want = [n for n in ref_registry.names() if n not in NOT_PORTED]
-    assert registry.names() == want and len(want) == 187 - 18
-    assert len(NOT_PORTED) == len(set(NOT_PORTED)) == 18
-    assert set(NOT_PORTED) < set(ref_registry.names())
+    from repro_torch.experiments import catalog
+    want = ref_registry.names()
+    assert registry.names() == want and len(want) == 187
+    assert len(set(want)) == 187 and not hasattr(catalog, "NOT_PORTED")
     for name in want:
         (p,) = registry.select(name)
         (r,) = ref_registry.select(name)
@@ -56,10 +56,10 @@ def test_catalog_is_the_scale_batch_family():
     assert len([n for n in want if registry.get(n).backend == "des"
                 and registry.get(n).batch_ok]) == 44
     for fam, count in (("wan", 6), ("avail", 11), ("batching", 18),
-                       ("obs", 1), ("reads", 15), ("conflict", 16),
+                       ("obs", 6), ("reads", 15), ("conflict", 16),
                        ("megagrid", 4), ("fig8", 20), ("table1", 2),
                        ("table2", 2), ("zipf", 5), ("fig9", 3),
-                       ("overload", 2)):
+                       ("overload", 10), ("failover", 3), ("lease", 2)):
         assert len(registry.select(fam)) == count, fam
     with pytest.raises(ValueError, match="matched no scenario"):
         registry.select("fig99/*")
