@@ -1,0 +1,7 @@
+"""Device kernels a scan step of the group step loop: the kernels of the
+profiled grid (copies and fills left out) over its scan steps."""
+from portbench import yardstick
+
+
+def read(ctx):
+    return yardstick.kernels_per_step(ctx)
