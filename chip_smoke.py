@@ -1666,6 +1666,7 @@ def bare(sa):
     """A scenario artifact without its walls, for a rerun's comparison."""
     sa = json.loads(json.dumps(sa))
     sa["run"].pop("wall_s")
+    sa["run"].pop("stack_s", None)
     sa["summary"].pop("wall_s")
     for u in sa["units"] + sa["replicates"]:
         u.pop("wall_s")

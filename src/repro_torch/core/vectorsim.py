@@ -57,6 +57,7 @@ from ..device import resolve_device
 from ..kernels import ops, segfanin
 from ..kernels.ref import seg_fanin_rows_ref
 from .messages import HEADER_BYTES, CostModel
+from . import spans
 from .pig import partition_followers, required_per_group
 from .quorums import fast_quorum, majority
 from .segscan import seg_cumsum
@@ -73,6 +74,9 @@ _MAX_STEPS = 400_000    # hard cap for the exhausted-retry loop
 # step i depend only on the cell key and i); the block holds at most this
 # many elements, which bounds the threefry intermediates' memory
 _DRAW_BLOCK_ELEMS = 1 << 21
+# threefry draw blocks issued by every step loop so far (``info``'s
+# ``draw_blocks`` is a call's difference)
+draw_blocks = 0
 
 KERNELS = ("auto", "torch")
 
@@ -740,8 +744,9 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     # reads each group's result at its slot clamp(gstart, 0, F - 1)
     kg = torch.clamp_min(thresh - 2, 0)
     kgf_c = kg.to(f32)[:, None, :]
-    fanin = ops.seg_fanin_groups(grp, gstart, sizes, kg, B,
-                                 plain=kernel == "torch")
+    with spans.span("fanin_setup"):
+        fanin = ops.seg_fanin_groups(grp, gstart, sizes, kg, B,
+                                     plain=kernel == "torch")
     c_repl_dense = c_repl.contiguous()     # a column of the costs
     flush_at = (thresh >= 2)[:, None, :]
     grp_mask_c = grp_mask[:, None, :]
@@ -783,18 +788,23 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     n_draw = 2 + 2 * G + 2 * F
     blk = max(1, min(steps, _DRAW_BLOCK_ELEMS
                      // (C * B * (n_draw + G + int(read)))))
+    global draw_blocks
+    draw_blocks += -(-steps // blk)
 
     for i in range(steps):
         j = i % blk
         if j == 0:
-            # k1, k2 = split(fold_in(key, i)) for every step of the block
-            idx = torch.arange(i, min(i + blk, steps), device=dev)
-            ks = prng.split(prng.fold_in(key, idx))          # (C, n, 2, 2)
-            e_blk = prng.exponential(ks[:, :, 0], (B, n_draw))
-            u_blk = prng.uniform(ks[:, :, 1], (B, G))
-            if read:
-                # the read mask: an extra fold of k2
-                r_blk = prng.uniform(prng.fold_in(ks[:, :, 1], 1), (B,))
+            with spans.span("draws", dev):
+                # k1, k2 = split(fold_in(key, i)) for every step of the
+                # block
+                idx = torch.arange(i, min(i + blk, steps), device=dev)
+                ks = prng.split(prng.fold_in(key, idx))      # (C, n, 2, 2)
+                e_blk = prng.exponential(ks[:, :, 0], (B, n_draw))
+                u_blk = prng.uniform(ks[:, :, 1], (B, G))
+                if read:
+                    # the read mask: an extra fold of k2
+                    r_blk = prng.uniform(prng.fold_in(ks[:, :, 1], 1),
+                                         (B,))
         t0, cids = torch.sort(ready, dim=1, stable=True)
         t0, cids = t0[:, :B], cids[:, :B]      # (C, B) ascending issue times
         active = t0 < stop[:, None]
@@ -1003,8 +1013,9 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 
     lat, t_fin = lat_o.reshape(C, -1), tfin_o.reshape(C, -1)
     active = active_o.reshape(C, -1)
-    out = _summarize(lat, t_fin, commit_o.reshape(C, -1), active, ready,
-                     loadF.sum(1), loadL, cell, nb=nb)
+    with spans.span("summary"):
+        out = _summarize(lat, t_fin, commit_o.reshape(C, -1), active, ready,
+                         loadF.sum(1), loadL, cell, nb=nb)
     if obs:
         out["leader_backlog_s"] = torch.where(
             qn > 0, qsum / torch.clamp_min(qn, 1.0), 0.0)
@@ -1146,19 +1157,22 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     active_o = torch.empty(C, steps, dtype=torch.bool, device=dev)
     key = cell["key"][:, None, :]
     blk = max(1, min(steps, _DRAW_BLOCK_ELEMS // (C * (2 * n + 5))))
+    global draw_blocks
+    draw_blocks += -(-steps // blk)
 
     for i in range(steps):
         j = i % blk
         if j == 0:
-            # split(fold_in(key, i), 5) for every step of the block, then
-            # the reference's five draws in its order
-            idx = torch.arange(i, min(i + blk, steps), device=dev)
-            ks = prng.split(prng.fold_in(key, idx), 5)        # (C, b, 5, 2)
-            coord_blk = prng.randint(ks[:, :, 0], (), 0, n)
-            ecl_blk = prng.exponential(ks[:, :, 1], (2,))
-            eout_blk = prng.exponential(ks[:, :, 2], (n,))
-            eback_blk = prng.exponential(ks[:, :, 3], (n,))
-            ukey_blk = prng.uniform(ks[:, :, 4], ())
+            with spans.span("draws", dev):
+                # split(fold_in(key, i), 5) for every step of the block,
+                # then the reference's five draws in its order
+                idx = torch.arange(i, min(i + blk, steps), device=dev)
+                ks = prng.split(prng.fold_in(key, idx), 5)    # (C, b, 5, 2)
+                coord_blk = prng.randint(ks[:, :, 0], (), 0, n)
+                ecl_blk = prng.exponential(ks[:, :, 1], (2,))
+                eout_blk = prng.exponential(ks[:, :, 2], (n,))
+                eback_blk = prng.exponential(ks[:, :, 3], (n,))
+                ukey_blk = prng.uniform(ks[:, :, 4], ())
         # the earliest-ready client (the first of equal minima)
         cid = torch.argmin(ready, dim=1, keepdim=True)
         t0 = torch.gather(ready, 1, cid)[:, 0]
@@ -1259,8 +1273,9 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 
     # symmetric protocol: node 0 is reported as "leader", the rest as
     # followers
-    return _summarize(tfin_o - t0_o, tfin_o, commit_o, active_o, ready,
-                      load[:, 1:].sum(1), load[:, 0], cell, nb=nb)
+    with spans.span("summary"):
+        return _summarize(tfin_o - t0_o, tfin_o, commit_o, active_o, ready,
+                          load[:, 1:].sum(1), load[:, 0], cell, nb=nb)
 
 
 # ================================================================== runners
@@ -1270,10 +1285,11 @@ def _run_cells(cells: Dict[str, torch.Tensor], steps: int, kmax: int,
                kind: str = "group") -> Dict[str, torch.Tensor]:
     """Every cell of a stacked grid through ``steps`` scan steps of the
     ``kind`` kernel (EPaxos pops one request a step: ``breq`` = 1)."""
-    if kind == "epaxos":
-        return _epaxos_cell(cells, steps, kmax, kernel, nb)
-    return _group_cell(cells, steps, kmax, breq, kernel, faulty, nb, obs,
-                       read)
+    with spans.span("step_loop"):
+        if kind == "epaxos":
+            return _epaxos_cell(cells, steps, kmax, kernel, nb)
+        return _group_cell(cells, steps, kmax, breq, kernel, faulty, nb, obs,
+                           read)
 
 
 def fanin_name(kernel: str, device) -> str:
@@ -1320,12 +1336,15 @@ def _run_on_devices(batch, devices, steps, kmax, breq, kernel, flags):
     turn (its launches are asynchronous), then every result is brought to
     the host."""
     per = len(batch["key"]) // len(devices)
-    outs = [_run_cells(cells_from_numpy({k: v[d * per:(d + 1) * per]
-                                         for k, v in batch.items()}, dev),
-                       steps, kmax, breq, kernel, **flags)
-            for d, dev in enumerate(devices)]
-    return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
-            for k in outs[0]}
+    outs = []
+    for d, dev in enumerate(devices):
+        with spans.span("lowering"):
+            cells = cells_from_numpy({k: v[d * per:(d + 1) * per]
+                                      for k, v in batch.items()}, dev)
+        outs.append(_run_cells(cells, steps, kmax, breq, kernel, **flags))
+    with spans.span("collect"):
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0]}
 
 
 def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
@@ -1364,17 +1383,18 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
     if obs and _batch_kind(configs) != "group":
         raise ValueError("obs timelines are group-kernel only — the epaxos "
                          "kernel has no single-leader FIFO to observe")
-    spec = _pad_spec(configs, grid)
-    kmax = spec["kmax"]
+    with spans.span("budget"):
+        spec = _pad_spec(configs, grid)
+        kmax = spec["kmax"]
+        if steps is None:
+            # requests are only issued inside [0, stop); the rate bound is
+            # optimistic, and the exhausted-retry loop is the safety net
+            rate = max(_estimate_rate(configs[ci], k) for ci, k, _ in grid)
+            steps = int(rate * (warmup + duration) * 1.15) + kmax + 64
     faulty = any(c.down is not None or c.slow is not None for c in configs)
     read = any(c.read_ratio > 0.0 for c in configs)
     nb = (int(np.ceil((warmup + duration + _DRAIN_S) / _TL_BUCKET)) + 1
           if (faulty or timeline or obs) else 0)
-    if steps is None:
-        # requests are only issued inside [0, stop); the rate bound is
-        # optimistic, and the exhausted-retry loop is the safety net
-        rate = max(_estimate_rate(configs[ci], k) for ci, k, _ in grid)
-        steps = int(rate * (warmup + duration) * 1.15) + kmax + 64
     steps0 = min(steps, _MAX_STEPS)
     # the group kernel pops `breq` requests a scan step, EPaxos one
     breq = min(8, kmax) if configs[0].kind == "group" else 1
@@ -1389,8 +1409,9 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
         real = len(part)
         part += [part[-1]] * (chunk - real)   # every chunk one shape
         t0 = time.perf_counter()
-        batch, _, _ = _stack_cells(configs, part, duration, warmup,
-                                   pad_to=spec)
+        with spans.span("lowering"):
+            batch, _, _ = _stack_cells(configs, part, duration, warmup,
+                                       pad_to=spec)
         stack_s = time.perf_counter() - t0
         steps_c = steps0
         scan = -(-steps_c // breq)
@@ -1404,8 +1425,10 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
             idx = np.nonzero(cout["exhausted"])[0]
             # retry the exhausted subset, padded back to a device multiple
             ridx = np.resize(idx, -(-len(idx) // D) * D)
-            sub = _run_on_devices({k: v[ridx] for k, v in batch.items()},
-                                  devices, scan, kmax, breq, kernel, flags)
+            with spans.span("retry"):
+                sub = _run_on_devices(
+                    {k: v[ridx] for k, v in batch.items()}, devices, scan,
+                    kmax, breq, kernel, flags)
             for k, v in sub.items():
                 cout[k][idx] = v[:len(idx)]
             csteps[idx] = steps_c
@@ -1428,58 +1451,10 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
     return out
 
 
-def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
-                      workload=None, clients: Sequence[int] = (60,),
-                      seeds: Sequence[int] = (0,), duration: float = 0.6,
-                      warmup: float = 0.3, leader_timeout: float = 50e-3,
-                      masks: Optional[Dict[str, np.ndarray]] = None,
-                      kernel: str = "auto", batch_m: int = 1,
-                      obs: bool = False, device=None,
-                      info: Optional[dict] = None) -> List[dict]:
-    """One scenario's full clients x seeds grid, run together on
-    ``device``.  Returns one dict per (clients, seed) in runner unit order
-    with the reference's measurement fields.
-
-    ``retry_risk`` marks cells whose p99 latency reaches the leader
-    timeout (the model's validity boundary, as in the reference).
-
-    ``masks`` enables the fault path (``FaultPlan.to_masks``); its units
-    carry a completion ``timeline``.  ``batch_m`` > 1 runs the
-    leader-batching model: every ``batch_m`` clients share one slot, so
-    client counts must divide evenly; throughput, counts and committed
-    scale back up by m, message loads down by m, and latencies drop by the
-    mean reply-serialization rank ((m-1)/2 per-reply CPU slots).  ``obs``
-    adds the leader-backlog series to every unit, and a leased-read
-    workload the read/write split (``rw``).
-
-    ``info``, when given, receives the run's device name, cell count, scan
-    steps, fan-in kernel launches (one a scan step for the group kernel,
-    two for EPaxos; none on the CPU) and wall seconds (the host clock
-    around work that ends with the results on the host).
-    """
-    t0 = time.perf_counter()
-    launches0 = segfanin.launches
-    cfg = build_config(protocol, n, pig=pig, topo=topo, workload=workload,
-                       masks=masks, batch_m=batch_m)
-    m = int(batch_m)
-    if m > 1:
-        for k in clients:
-            if int(k) % m:
-                raise ValueError(f"clients={k} not divisible by "
-                                 f"batch_m={m}: one kernel lane carries a "
-                                 f"whole batch of {m} clients")
-    grid = [(0, int(k) // m, int(s)) for k in clients for s in seeds]
-    dev = resolve_device(device)
-    out = simulate_grid([cfg], grid, duration, warmup, kernel=kernel,
-                        obs=obs, device=dev)
-    if info is not None:
-        info.update({"device": (torch.cuda.get_device_name(dev)
-                                if dev.type == "cuda" else "cpu"),
-                     "cells": len(grid), "scan_steps": int(out["scan_steps"]),
-                     "fanin_launches": segfanin.launches - launches0,
-                     "wall_s": time.perf_counter() - t0})
-    # mean reply rank correction (seconds); 0 when unbatched
-    lat_adj = 0.0 if m == 1 else (m - 1) / 2.0 * (cfg.costs["c_replycl"] / m)
+def _units(out, clients, seeds, m: int, lat_adj: float,
+           leader_timeout: float) -> List[dict]:
+    """``simulate_scenario``'s per-cell result dicts from ``out``'s
+    arrays, in runner unit order."""
     units = []
     kidx = [int(k) for k in clients for _ in seeds]
     sidx = [int(s) for _ in clients for s in seeds]
@@ -1519,3 +1494,75 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
             }
         units.append(u)
     return units
+
+
+def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
+                      workload=None, clients: Sequence[int] = (60,),
+                      seeds: Sequence[int] = (0,), duration: float = 0.6,
+                      warmup: float = 0.3, leader_timeout: float = 50e-3,
+                      masks: Optional[Dict[str, np.ndarray]] = None,
+                      kernel: str = "auto", batch_m: int = 1,
+                      obs: bool = False, device=None,
+                      info: Optional[dict] = None) -> List[dict]:
+    """One scenario's full clients x seeds grid, run together on
+    ``device``.  Returns one dict per (clients, seed) in runner unit order
+    with the reference's measurement fields.
+
+    ``retry_risk`` marks cells whose p99 latency reaches the leader
+    timeout (the model's validity boundary, as in the reference).
+
+    ``masks`` enables the fault path (``FaultPlan.to_masks``); its units
+    carry a completion ``timeline``.  ``batch_m`` > 1 runs the
+    leader-batching model: every ``batch_m`` clients share one slot, so
+    client counts must divide evenly; throughput, counts and committed
+    scale back up by m, message loads down by m, and latencies drop by the
+    mean reply-serialization rank ((m-1)/2 per-reply CPU slots).  ``obs``
+    adds the leader-backlog series to every unit, and a leased-read
+    workload the read/write split (``rw``).
+
+    ``info``, when given, receives the run's device name, cell count, scan
+    steps, fan-in kernel launches (one a scan step for the group kernel,
+    two for EPaxos; none on the CPU), threefry draw blocks
+    (``draw_blocks``), the chunks, the exhausted-cell retry passes summed
+    over them (``retries``), the seconds spent stacking them
+    (``stack_s``) and wall seconds (the host clock around work that ends
+    with the results on the host).  Its spans (``core/spans.py``) are
+    recorded only inside ``spans.recording()`` or under the profiler.
+    """
+    with spans.grid():
+        t0 = time.perf_counter()
+        launches0, blocks0 = segfanin.launches, draw_blocks
+        with spans.span("lowering"):
+            cfg = build_config(protocol, n, pig=pig, topo=topo,
+                               workload=workload, masks=masks,
+                               batch_m=batch_m)
+        m = int(batch_m)
+        if m > 1:
+            for k in clients:
+                if int(k) % m:
+                    raise ValueError(f"clients={k} not divisible by "
+                                     f"batch_m={m}: one kernel lane carries "
+                                     f"a whole batch of {m} clients")
+        grid = [(0, int(k) // m, int(s)) for k in clients for s in seeds]
+        dev = resolve_device(device)
+        # simulate_grid's one chunk, keeping its record
+        out = simulate_grid_sharded([cfg], grid, duration, warmup,
+                                    kernel=kernel, obs=obs, chunk=len(grid),
+                                    devices=[dev])
+        chunks = out.pop("sharding")["chunks"]
+        if info is not None:
+            info.update({"device": (torch.cuda.get_device_name(dev)
+                                    if dev.type == "cuda" else "cpu"),
+                         "cells": len(grid),
+                         "scan_steps": int(out["scan_steps"]),
+                         "fanin_launches": segfanin.launches - launches0,
+                         "draw_blocks": draw_blocks - blocks0,
+                         "chunks": len(chunks),
+                         "retries": sum(c["retries"] for c in chunks),
+                         "stack_s": sum(c["stack_s"] for c in chunks),
+                         "wall_s": time.perf_counter() - t0})
+        # mean reply rank correction (seconds); 0 when unbatched
+        lat_adj = (0.0 if m == 1
+                   else (m - 1) / 2.0 * (cfg.costs["c_replycl"] / m))
+        with spans.span("units"):
+            return _units(out, clients, seeds, m, lat_adj, leader_timeout)

@@ -7,10 +7,13 @@ Runs each selected scenario (any registered one: the ``scale``, ``wan``,
 ``avail``, ``batching``, ``obs`` and ``reads`` families; a fault plan's
 masks, batching, leased reads and obs go through the runner as in a
 suite run) once untraced (the wall-clock reference), then
-once under ``torch.profiler``, and prints per scenario: wall seconds and
+once under ``torch.profiler`` with the entry's spans recorded
+(``core/spans.py``), and prints per scenario: wall seconds and
 ms per scan step, the device's busy time (the union of its kernel
-intervals) and idle share over the traced window, and the kernels that
-took the most device time.  The traced run pays the profiler's own
+intervals) and idle share over the traced window, the kernels that
+took the most device time, and each span's count, total and self time
+(its duration less its children's) with the device time of the spans
+that time the device (the draws).  The traced run pays the profiler's own
 overhead, so its wall is reported beside the untraced one.  Collecting
 the events of a full grid (several hundred thousand kernels) takes the
 profiler minutes after the run; quick mode keeps that short.
@@ -24,6 +27,7 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from ..core import spans
 from ..device import resolve_device
 from . import registry, runner
 
@@ -62,7 +66,7 @@ def trace_scenario(sc, quick: bool, device) -> dict:
 
     run, wall = once()
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, spans.recording() as rec:
         _, traced_wall = once()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -82,7 +86,8 @@ def trace_scenario(sc, quick: bool, device) -> dict:
             "device_idle_share": (1.0 - busy * 1e-6 / traced_wall
                                   if cuda else None),
             "kernel_launches": len(kernels) if cuda else None,
-            "top_kernels": [(n, c, t * 1e-3) for n, (c, t) in ranked]}
+            "top_kernels": [(n, c, t * 1e-3) for n, (c, t) in ranked],
+            "spans": rec.table()}
 
 
 def main(argv=None) -> int:
@@ -106,6 +111,10 @@ def main(argv=None) -> int:
               f"traced_wall={r['traced_wall_s']:.6f}s {dev}")
         for name, count, ms in r["top_kernels"]:
             print(f"    {ms:10.3f} ms {count:7d}x  {name[:100]}")
+        for name, count, total, own, dev_ms in r["spans"]:
+            dev = "" if dev_ms is None else f" device={dev_ms:.3f}ms"
+            print(f"    span {name:12s} {count:7d}x total={total:.6f}s "
+                  f"self={own:.6f}s{dev}")
     return 0
 
 

@@ -106,6 +106,7 @@ def test_cli_writes_the_same_artifact(arts, tmp_path, capsys):
         a.pop("wall_s")
         for sa in a["scenarios"]:
             sa["run"].pop("wall_s")
+            sa["run"].pop("stack_s")
             sa["summary"].pop("wall_s")
             for u in sa["units"] + sa["replicates"]:
                 u.pop("wall_s")
