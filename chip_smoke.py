@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the seven kernels from ``src/repro_torch/kernels/csrc``,
+2. build   - build the eight kernels from ``src/repro_torch/kernels/csrc``,
              one ``nvcc`` per source, started together; print each
              kernel's registers, spills and shared memory;
 3. kernel  - hold the fan-in kernels against their plain PyTorch version
@@ -44,6 +44,16 @@ Phases, in order; any failure exits non-zero:
 6. check   - R=3 in quick mode: kernel run == plain-version run on the card
              (bit-identical), a rerun is bit-identical, and the card agrees
              with the CPU within the parity tolerance;
+36. draws  - (run after phase 4) the threefry draws kernel
+             (``threefry_draws_sm90.cu``) against the composition of
+             ``prng`` calls at pig25.montecarlo's block (24,576 cells, B 8,
+             G 3, F 24, one step), bit for bit, and its exponential over
+             all 2**23 uniforms against torch's; device ms a launch (200
+             captured in a CUDA graph) beside its bounds (46.4 MB of
+             output at 3.35 TB/s, its INT32 operations at the card's INT32
+             rate) and the plain composition's ms; phases 5, 17, 20, 22,
+             31 and 33 check ``draw_launches == draw_blocks`` on every
+             group grid (0 on EPaxos's) and print them;
 17. branches - (run after phase 6, with the batch path) the 14 scenarios of
              the group kernel's other branches (``wan/*``, ``avail/*``,
              ``batching/*``, ``obs/*``, ``reads/*``) at their full grids
@@ -344,9 +354,14 @@ HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate
 F32_OPS_S = 67e12          # H100 SXM f32 peak outside the tensor cores
 BF16_OPS_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 TF32_OPS_S = 495e12        # H100 SXM TF32 dense tensor-core peak
+# 132 SMs x 64 INT32 lanes x 1.98 GHz: the H100 SXM's 32-bit integer issue
+INT32_OPS_S = 16.7e12
 KERNELS = ["seg_fanin", "seg_fanin_sm90", "flash_attention",
            "flash_attention_sm90", "pig_aggregate", "ssm_scan",
-           "ssm_scan_sm90"]
+           "ssm_scan_sm90", "threefry_draws_sm90"]
+# the threefry draws kernel's launches on the main paths, by phase (the
+# runner's ``draw_launches`` of phases 5, 17, 20, 22, 31 and 33)
+DRAW_LAUNCHES = {}
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
@@ -939,6 +954,78 @@ def time_fanin(device, name, F, cells, floor_ms):
             "floor_ms": floor_ms}
 
 
+# -------------------------------------------------------------- phase 36
+DRAWS_CELL = dict(C=24_576, B=8, G=3, F=24)    # pig25.montecarlo's block
+
+
+def check_draw_launches(name, sa, tag):
+    """One threefry kernel launch a draw block on a group grid, none on an
+    EPaxos grid (its loop draws through ``prng``); counted by ``tag``."""
+    run = sa["run"]
+    want = 0 if sa["spec"]["protocol"] == "epaxos" else run["draw_blocks"]
+    if run["draw_launches"] != want or run["draw_blocks"] < 1:
+        raise SystemExit(f"{name}: {run['draw_launches']} draws kernel "
+                         f"launches for {run['draw_blocks']} draw blocks "
+                         f"(want {want})")
+    DRAW_LAUNCHES[tag] = DRAW_LAUNCHES.get(tag, 0) + run["draw_launches"]
+
+
+def check_draws(device):
+    """Phase 36: the draws kernel at pig25.montecarlo's block against the
+    composition of ``prng`` calls (``ref.group_draws_ref``) on the card,
+    bit for bit; its exponential over every uniform against torch's; its
+    device time (200 launches in a CUDA graph) and host-launched time
+    beside its bounds and the composition's time."""
+    import torch
+    from repro_torch.kernels import draws, ref
+    C, B, G, F = (DRAWS_CELL[k] for k in "CBGF")
+    n_draw = 2 + 2 * G + 2 * F
+    s = 2**31 * 1_000_003 + torch.arange(C, dtype=torch.int64)
+    key = torch.stack([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF], -1).to(
+        device)
+    call = lambda: draws.group_draws(key, 17, 1, B, n_draw, G)
+    plain = lambda: ref.group_draws_ref(key, 17, 1, B, n_draw, G)
+    before = draws.launches_sm90
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    same = all(same_bits(a, b) for a, b in zip(got[:2], want[:2]))
+    u = torch.arange(2**23, dtype=torch.float32, device=device) * 2.0**-23
+    exp_differ = int((draws.exponential_of(u).view(torch.int32)
+                      != (-torch.log1p(-u.double())).float().view(
+                          torch.int32)).sum())
+    log(f"draws    threefry_draws_sm90 C={C} B={B} G={G} F={F} n=1: "
+        f"launches={draws.launches_sm90 - before} equal={same} "
+        f"(tolerance: bit equality); exponential of all 2**23 uniforms: "
+        f"{exp_differ} differ")
+    if not same or exp_differ or draws.launches_sm90 != before + 1:
+        raise SystemExit("threefry_draws_sm90 != the prng composition")
+    words = C * B * (n_draw + G)
+    nbytes = 4 * words + 16 * C
+    # a threefry is 2 + 20 x 3 + 5 x 2 adds, rotates and xors, a word's
+    # bits and uniform 3 more; three threefry calls a row derive the keys
+    ops = 75 * words + 3 * 72 * C
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / INT32_OPS_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    dev_ms, replayed = graph_ms(call)
+    if not all(same_bits(a, b) for a, b in zip(replayed[:2], want[:2])):
+        raise SystemExit("threefry_draws_sm90: the graph replay's output != "
+                         "an eager launch's")
+    host_ms = time_ms(call, 200)
+    plain_ms = time_ms(plain, 20, warmup=3)
+    log(f"draws    bounds: {nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms; "
+        f"{ops} INT32 ops at {INT32_OPS_S / 1e12:.1f} TOP/s = "
+        f"{ops_ms:.6f} ms")
+    log(f"draws    threefry_draws_sm90: device {dev_ms:.6f} ms a launch (200 "
+        f"in a CUDA graph; replay == eager: True), {100 * bound / dev_ms:.2f}"
+        f"% of its bound; host-launched {host_ms:.6f} ms a call; the prng "
+        f"composition {plain_ms:.6f} ms ({plain_ms / dev_ms:.1f}x); no "
+        f"single PyTorch call computes it")
+    return {"ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 # --------------------------------------------------------------- phase 5
 def run_main_path(device):
     import torch
@@ -958,6 +1045,7 @@ def run_main_path(device):
         sa = art["scenarios"][0]
         run = sa["run"]
         check_units(name, sa["units"])
+        check_draw_launches(name, sa, "5 main")
         if not launches == sm90 == run["scan_steps"]:
             raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
                              f"of seg_fanin_sm90) for {run['scan_steps']} "
@@ -965,6 +1053,7 @@ def run_main_path(device):
         tput = sa["summary"]["throughput"]["mean"]
         log(f"main     {name:28s} cells={run['cells']:4d} "
             f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:5d} "
+            f"draw_launches={run['draw_launches']} "
             f"wall={wall:.3f}s cells/s={run['cells'] / wall:.2f} "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
             f"tput_mean={tput} device={run['device']}")
@@ -1325,12 +1414,14 @@ def run_grids(pool, tag, grids, windows=()):
                              f"of seg_fanin_sm90, the runner counted "
                              f"{run['fanin_launches']}) for "
                              f"{run['scan_steps']} scan steps x {rounds}")
+        check_draw_launches(name, sa, tag)
         if sa["backend"] != "batch" or sa["spec"]["backend"] != "batch":
             raise SystemExit(f"{name}: the artifact does not record the "
                              f"batch backend")
         log(f"{tag:8s} {name:36s} {'quick' if quick else 'full':5s} "
             f"cells={run['cells']:3d} scan_steps={run['scan_steps']:5d} "
-            f"launches_sm90={sm90:6d} wall={wall:.3f}s "
+            f"launches_sm90={sm90:6d} "
+            f"draw_launches={run['draw_launches']:5d} wall={wall:.3f}s "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
             f"tput_mean={tput} {extras_shape(sa['units'])}")
         arts[name] = sa
@@ -4219,6 +4310,7 @@ def main() -> int:
     phase("2 build", build_kernels)
     err = phase("3 kernel", check_kernel, device)
     timing = phase("4 timing", time_kernel, device)
+    draws_timing = phase("36 draws", check_draws, device)
     launches = phase("5 main", run_main_path, device)
     phase("5 trace", launches_per_step, device)
     phase("6 check", cross_check, device)
@@ -4353,7 +4445,14 @@ def main() -> int:
            "launches": sum(ssm_paths.values()), "launches_by_path": ssm_paths,
            "max_abs_err": ssm_err, **ssm_timing,
            "library_ms": None}
-    log(json.dumps({"kernels": [record, flash, pig, ssm]}))
+    draws_rec = {"name": "threefry_draws_sm90", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/"
+                           "threefry_draws_sm90.cu",
+                 "replaces": None,
+                 "launches": sum(DRAW_LAUNCHES.values()),
+                 "launches_by_path": DRAW_LAUNCHES, "max_abs_err": 0.0,
+                 **draws_timing, "library_ms": None}
+    log(json.dumps({"kernels": [record, flash, pig, ssm, draws_rec]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -54,7 +54,7 @@ import torch
 from .. import prng
 from ..convert import cells_from_numpy
 from ..device import resolve_device
-from ..kernels import ops, segfanin
+from ..kernels import draws, ops, segfanin
 from ..kernels.ref import seg_fanin_rows_ref
 from .messages import HEADER_BYTES, CostModel
 from . import spans
@@ -72,10 +72,12 @@ _TL_BUCKET = 0.05       # timeline bucket (= runner.TIMELINE_BUCKET_S)
 _MAX_STEPS = 400_000    # hard cap for the exhausted-retry loop
 # random draws are made for a block of scan steps at once (the draws of
 # step i depend only on the cell key and i); the block holds at most this
-# many elements, which bounds the threefry intermediates' memory
+# many elements, which bounds the memory of the threefry intermediates (the
+# plain version's) or, through the group loop's kernel, of its outputs
 _DRAW_BLOCK_ELEMS = 1 << 21
 # threefry draw blocks issued by every step loop so far (``info``'s
-# ``draw_blocks`` is a call's difference)
+# ``draw_blocks`` is a call's difference; ``draw_launches`` counts those
+# made by the draws kernel, ``kernels.draws.launches_sm90``)
 draw_blocks = 0
 
 KERNELS = ("auto", "torch")
@@ -658,10 +660,10 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 
     ``cell`` holds the stacked per-cell tensors (``cells_from_numpy``);
     every quantity below carries the cell axis C first.  ``kernel``
-    selects the reply fan-in: "auto" goes through
-    ``kernels.ops.seg_fanin_groups`` (the CUDA kernel on the card, the
-    plain version on the CPU); "torch" forces the plain version, for
-    whole-run comparisons on the card.
+    selects the reply fan-in and the draw blocks: "auto" goes through
+    ``kernels.ops.seg_fanin_groups`` and ``kernels.ops.group_draws`` (the
+    CUDA kernels on the card, the plain versions on the CPU); "torch"
+    forces the plain versions, for whole-run comparisons on the card.
 
     The branches are static, as in the reference's ``_group_cell``:
 
@@ -784,7 +786,7 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     active_o = torch.empty(C, steps, B, dtype=torch.bool, device=dev)
     if read:
         isr_o = torch.empty_like(active_o)
-    key = cell["key"][:, None, :]
+    key = cell["key"]
     n_draw = 2 + 2 * G + 2 * F
     blk = max(1, min(steps, _DRAW_BLOCK_ELEMS
                      // (C * B * (n_draw + G + int(read)))))
@@ -796,15 +798,11 @@ def _group_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
         if j == 0:
             with spans.span("draws", dev):
                 # k1, k2 = split(fold_in(key, i)) for every step of the
-                # block
-                idx = torch.arange(i, min(i + blk, steps), device=dev)
-                ks = prng.split(prng.fold_in(key, idx))      # (C, n, 2, 2)
-                e_blk = prng.exponential(ks[:, :, 0], (B, n_draw))
-                u_blk = prng.uniform(ks[:, :, 1], (B, G))
-                if read:
-                    # the read mask: an extra fold of k2
-                    r_blk = prng.uniform(prng.fold_in(ks[:, :, 1], 1),
-                                         (B,))
+                # block, their draws and (leased reads) the read mask's,
+                # from an extra fold of k2
+                e_blk, u_blk, r_blk = ops.group_draws(
+                    key, i, min(blk, steps - i), B, n_draw, G, read=read,
+                    plain=kernel == "torch")
         t0, cids = torch.sort(ready, dim=1, stable=True)
         t0, cids = t0[:, :B], cids[:, :B]      # (C, B) ascending issue times
         active = t0 < stop[:, None]
@@ -1523,8 +1521,10 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     ``info``, when given, receives the run's device name, cell count, scan
     steps, fan-in kernel launches (one a scan step for the group kernel,
     two for EPaxos; none on the CPU), threefry draw blocks
-    (``draw_blocks``), the chunks, the exhausted-cell retry passes summed
-    over them (``retries``), the seconds spent stacking them
+    (``draw_blocks``) and the draws kernel's launches among them
+    (``draw_launches``: one a group-loop block on the card, none on the
+    CPU or in the EPaxos loop), the chunks, the exhausted-cell retry
+    passes summed over them (``retries``), the seconds spent stacking them
     (``stack_s``) and wall seconds (the host clock around work that ends
     with the results on the host).  Its spans (``core/spans.py``) are
     recorded only inside ``spans.recording()`` or under the profiler.
@@ -1532,6 +1532,7 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     with spans.grid():
         t0 = time.perf_counter()
         launches0, blocks0 = segfanin.launches, draw_blocks
+        draws0 = draws.launches_sm90
         with spans.span("lowering"):
             cfg = build_config(protocol, n, pig=pig, topo=topo,
                                workload=workload, masks=masks,
@@ -1557,6 +1558,7 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
                          "scan_steps": int(out["scan_steps"]),
                          "fanin_launches": segfanin.launches - launches0,
                          "draw_blocks": draw_blocks - blocks0,
+                         "draw_launches": draws.launches_sm90 - draws0,
                          "chunks": len(chunks),
                          "retries": sum(c["retries"] for c in chunks),
                          "stack_s": sum(c["stack_s"] for c in chunks),

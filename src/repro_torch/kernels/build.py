@@ -25,12 +25,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # each kernel's own flags: the bit equality of the fan-in kernels and
 # pig_aggregate
 # with their plain versions needs every multiply and add rounded on its own
-# (no FMA contraction)
+# (no FMA contraction); the draws' one float64 log1p rounds as PyTorch's
+# CUDA log1p with or without it (all 2**23 uniforms checked on the card),
+# and keeps nvcc's default, which PyTorch is built with
 KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",),
                 "seg_fanin_sm90": ("-fmad=false",), "flash_attention": (),
                 "flash_attention_sm90": (),
                 "pig_aggregate": ("-fmad=false",), "ssm_scan": (),
-                "ssm_scan_sm90": ()}
+                "ssm_scan_sm90": (), "threefry_draws_sm90": ()}
+# libraries built in one build_all call, whichever of them is loaded first:
+# the group step loop's fan-in and draws, so that a checkout's first grid
+# runs both nvcc processes side by side
+BUILT_TOGETHER = (("seg_fanin_sm90", "threefry_draws_sm90"),)
 
 
 def nvcc() -> str:
@@ -93,5 +99,7 @@ def build(name: str) -> Path:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``lib<name>``."""
-    return ctypes.CDLL(str(build(name)))
+    """Build (if needed) and load ``lib<name>``; the libraries built
+    together with it (``BUILT_TOGETHER``) are built in the same call."""
+    group = next((g for g in BUILT_TOGETHER if name in g), (name,))
+    return ctypes.CDLL(str(build_all(group)[group.index(name)]))

@@ -15,8 +15,8 @@ shard of a dimension it sums over (keys and head dim; the scan's Dk), so
 the inputs are first redistributed to that layout.  On the CPU or the
 meta device ``ssm_scan`` keeps the reference's split of Dk over 'model'
 (``ssm.chunked_linear_scan``).
-``pig_aggregate`` and the fan-ins are on no sharded path: a DTensor there
-raises a ``ValueError``."""
+``pig_aggregate``, the fan-ins and the draws are on no sharded path: a
+DTensor there raises a ``ValueError``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -26,6 +26,7 @@ import torch
 from .. import shard
 from . import autograd
 from . import ssm_scan as _ssm_scan
+from .draws import group_draws as _group_draws
 from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
 from .pig_aggregate import quantize_blockwise  # noqa: F401 (re-export)
@@ -200,3 +201,17 @@ def seg_fanin_groups(grp: torch.Tensor, gstart: torch.Tensor,
     version ``ref.seg_fanin_groups_ref``."""
     _no_dtensor("seg_fanin_groups", grp, gstart, sizes, kg)
     return FaninGroups(grp, gstart, sizes, kg, B, plain=plain)
+
+
+def group_draws(key: torch.Tensor, i0: int, n: int, B: int, n_draw: int,
+                G: int, read: bool = False, plain: bool = False):
+    """The group step loop's draw block for steps [i0, i0 + n): for every
+    cell's key (C, 2) int64, ``k1, k2 = split(fold_in(key, s))`` and the
+    f32 draws exponential(k1, (B, n_draw)) (C, n, B, n_draw), uniform(k2,
+    (B, G)) (C, n, B, G) and, with ``read``, uniform(fold_in(k2, 1), (B,))
+    (C, n, B) (else None).  On the card one launch of
+    ``csrc/threefry_draws_sm90.cu``; on the CPU (or with ``plain``) the
+    plain version ``ref.group_draws_ref``, a composition of ``prng`` calls,
+    which the kernel equals bit for bit."""
+    _no_dtensor("group_draws", key)
+    return _group_draws(key, i0, n, B, n_draw, G, read=read, plain=plain)

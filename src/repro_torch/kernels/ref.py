@@ -8,6 +8,7 @@ import torch
 
 from typing import Optional
 
+from .. import prng
 from ..core.segscan import seg_cummax, seg_start_index
 from ..models.layers import attention_ref
 from ..models.ssm import chunked_linear_scan
@@ -174,3 +175,20 @@ def pig_aggregate_ref(shards: torch.Tensor, scales: torch.Tensor,
     for g in range(G):
         acc = acc + shards[g].view(-1, block).float() * scales[g, :, None]
     return acc.view(N)
+
+
+def group_draws_ref(key: torch.Tensor, i0: int, n: int, B: int, n_draw: int,
+                    G: int, read: bool = False):
+    """The group step loop's draw block, the plain version: for the cells'
+    keys (C, 2) and the steps s in [i0, i0 + n), ``k1, k2 =
+    split(fold_in(key, s))`` and the draws ``exponential(k1, (B, n_draw))``
+    (C, n, B, n_draw), ``uniform(k2, (B, G))`` (C, n, B, G) and, with
+    ``read``, ``uniform(fold_in(k2, 1), (B,))`` (C, n, B), else None; f32,
+    through ``prng``'s threefry on int64."""
+    idx = torch.arange(i0, i0 + n, device=key.device)
+    ks = prng.split(prng.fold_in(key[:, None, :], idx))     # (C, n, 2, 2)
+    e = prng.exponential(ks[:, :, 0], (B, n_draw))
+    u = prng.uniform(ks[:, :, 1], (B, G))
+    r = (prng.uniform(prng.fold_in(ks[:, :, 1], 1), (B,)) if read
+         else None)
+    return e, u, r
