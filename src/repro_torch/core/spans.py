@@ -34,7 +34,11 @@ The names (what reads each):
 * ``fanin_setup``: the grouped fan-in's layout check, once a pass;
 * ``draws``: each block of threefry draws, a host span and, on the card,
   a device interval (``draws_host_ms_per_step``,
-  ``draws_device_ms_per_step``);
+  ``draws_device_ms_per_step``; ``draws_device_ms_per_step.epaxos`` in
+  the EPaxos loop);
+* ``keys``: the EPaxos loop's per-key conflict tracking, once a scan
+  step, a host span and, on the card, a device interval
+  (``keys_device_ms_per_step.epaxos``, ``keys_roofline.epaxos``);
 * ``summary``: ``_summarize``;
 * ``collect``: the results brought to the host (the wait for the device
   to drain, then the copies);
@@ -55,7 +59,7 @@ from typing import NamedTuple, Optional
 import torch
 
 NAMES = ("entry", "lowering", "budget", "step_loop", "fanin_setup", "draws",
-         "summary", "collect", "retry", "units")
+         "keys", "summary", "collect", "retry", "units")
 
 
 class Span(NamedTuple):

@@ -1066,7 +1066,8 @@ def _epaxos_tables(cell: Dict[str, torch.Tensor]):
 
 
 def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
-                 kernel: str = "auto", nb: int = 0):
+                 kernel: str = "auto", nb: int = 0,
+                 counts: Optional[dict] = None):
     """Simulate every grid cell of the EPaxos kernel for ``steps`` scan
     steps of one request each: a random command leader per request,
     PreAccept broadcast to all peers, fast-quorum commit on the
@@ -1087,7 +1088,10 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     coef = the coordinator's backlog W_C, scalars [-0.5, 0, c, L1], cap
     fq - 2 or majority - 2): ``kernels.segfanin.seg_fanin_rows``, two
     sm90 launches a scan step on the card, the plain version on the CPU
-    or with ``kernel="torch"``.  Node 0 is summarized as the "leader"."""
+    or with ``kernel="torch"``.  Node 0 is summarized as the "leader".
+    ``counts``, when given, receives ``slow_path``: each cell's window
+    requests (those ``committed`` counts) that took the slow round.  The
+    per-key update of ``race`` and ``depk`` is the ``keys`` span."""
     f32 = torch.float32
     inf = torch.inf
     reg_nodes = cell["reg_nodes"]
@@ -1153,6 +1157,7 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     tfin_o = torch.empty_like(t0_o)
     commit_o = torch.empty_like(t0_o)
     active_o = torch.empty(C, steps, dtype=torch.bool, device=dev)
+    slow_n = torch.zeros(C, dtype=torch.int32, device=dev)
     key = cell["key"][:, None, :]
     blk = max(1, min(steps, _DRAW_BLOCK_ELEMS // (C * (2 * n + 5))))
     global draw_blocks
@@ -1251,24 +1256,29 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 
         # conflict tracking: when every peer has processed this request's
         # PreAccept (race), and when its commit is known everywhere (depk)
-        race_new = torch.where(is_peer, arr_p + W_p + c_pa_c, -inf).amax(1)
-        dep_new = committed_all + b_prop + jitter
-        race = race.scatter(1, k, torch.where(active, race_new,
-                                              race_k)[:, None])
-        depk = depk.scatter(1, k, torch.where(active, dep_new,
-                                              depk_k)[:, None])
+        with spans.span("keys", dev):
+            race_new = torch.where(is_peer, arr_p + W_p + c_pa_c,
+                                   -inf).amax(1)
+            dep_new = committed_all + b_prop + jitter
+            race = race.scatter(1, k, torch.where(active, race_new,
+                                                  race_k)[:, None])
+            depk = depk.scatter(1, k, torch.where(active, dep_new,
+                                                  depk_k)[:, None])
 
         # per-node messages of a request in the window (small integers)
         in_win = active & (commit_done >= warmup) & (commit_done <= win_hi)
         add = torch.where(is_peer, 3.0 + 2.0 * slowf[:, None],
                           ((3.0 * n - 1.0) + 2.0 * (n - 1) * slowf)[:, None])
         load = load + torch.where(in_win[:, None], add, 0.0)
+        slow_n = slow_n + (slow & in_win)
 
         t0_o[:, i] = t0
         tfin_o[:, i] = t_fin
         commit_o[:, i] = commit_done
         active_o[:, i] = active
 
+    if counts is not None:
+        counts["slow_path"] = slow_n
     # symmetric protocol: node 0 is reported as "leader", the rest as
     # followers
     with spans.span("summary"):
@@ -1280,12 +1290,14 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
 def _run_cells(cells: Dict[str, torch.Tensor], steps: int, kmax: int,
                breq: int, kernel: str = "auto", faulty: bool = False,
                nb: int = 0, obs: bool = False, read: bool = False,
-               kind: str = "group") -> Dict[str, torch.Tensor]:
+               kind: str = "group",
+               counts: Optional[dict] = None) -> Dict[str, torch.Tensor]:
     """Every cell of a stacked grid through ``steps`` scan steps of the
-    ``kind`` kernel (EPaxos pops one request a step: ``breq`` = 1)."""
+    ``kind`` kernel (EPaxos pops one request a step: ``breq`` = 1).
+    ``counts`` receives the EPaxos kernel's ``slow_path``."""
     with spans.span("step_loop"):
         if kind == "epaxos":
-            return _epaxos_cell(cells, steps, kmax, kernel, nb)
+            return _epaxos_cell(cells, steps, kmax, kernel, nb, counts)
         return _group_cell(cells, steps, kmax, breq, kernel, faulty, nb, obs,
                            read)
 
@@ -1313,7 +1325,8 @@ def simulate_grid(configs: Sequence[SimConfig], grid, duration: float,
     no-ops, so finished cells keep their results).  ``out["steps"]`` is
     each cell's final budget; ``out["scan_steps"]`` (an int) counts the
     scan steps run over all passes: one fan-in launch each for the group
-    kernel, two for EPaxos.
+    kernel, two for EPaxos.  An EPaxos grid adds ``slow_path``: each
+    cell's window requests that committed on the slow path.
 
     ``timeline=True`` (implied by fault-mask configs) adds per-cell
     completion timelines (``_TL_BUCKET`` buckets); ``obs=True`` (group
@@ -1339,7 +1352,10 @@ def _run_on_devices(batch, devices, steps, kmax, breq, kernel, flags):
         with spans.span("lowering"):
             cells = cells_from_numpy({k: v[d * per:(d + 1) * per]
                                       for k, v in batch.items()}, dev)
-        outs.append(_run_cells(cells, steps, kmax, breq, kernel, **flags))
+        counts: Dict[str, torch.Tensor] = {}
+        outs.append(_run_cells(cells, steps, kmax, breq, kernel,
+                               counts=counts, **flags))
+        outs[-1].update(counts)
     with spans.span("collect"):
         return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
                 for k in outs[0]}
@@ -1523,11 +1539,13 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     two for EPaxos; none on the CPU), threefry draw blocks
     (``draw_blocks``) and the draws kernel's launches among them
     (``draw_launches``: one a group-loop block on the card, none on the
-    CPU or in the EPaxos loop), the chunks, the exhausted-cell retry
-    passes summed over them (``retries``), the seconds spent stacking them
-    (``stack_s``) and wall seconds (the host clock around work that ends
-    with the results on the host).  Its spans (``core/spans.py``) are
-    recorded only inside ``spans.recording()`` or under the profiler.
+    CPU or in the EPaxos loop), the window's requests that took EPaxos's
+    slow round (``slow_path_requests``; 0 for the group kernel), the
+    chunks, the exhausted-cell retry passes summed over them
+    (``retries``), the seconds spent stacking them (``stack_s``) and wall
+    seconds (the host clock around work that ends with the results on
+    the host).  Its spans (``core/spans.py``) are recorded only inside
+    ``spans.recording()`` or under the profiler.
     """
     with spans.grid():
         t0 = time.perf_counter()
@@ -1551,6 +1569,7 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
                                     kernel=kernel, obs=obs, chunk=len(grid),
                                     devices=[dev])
         chunks = out.pop("sharding")["chunks"]
+        slow = out.pop("slow_path", None)
         if info is not None:
             info.update({"device": (torch.cuda.get_device_name(dev)
                                     if dev.type == "cuda" else "cpu"),
@@ -1559,6 +1578,8 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
                          "fanin_launches": segfanin.launches - launches0,
                          "draw_blocks": draw_blocks - blocks0,
                          "draw_launches": draws.launches_sm90 - draws0,
+                         "slow_path_requests": (0 if slow is None
+                                                else int(slow.sum())),
                          "chunks": len(chunks),
                          "retries": sum(c["retries"] for c in chunks),
                          "stack_s": sum(c["stack_s"] for c in chunks),
