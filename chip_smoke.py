@@ -51,9 +51,12 @@ Phases, in order; any failure exits non-zero:
              all 2**23 uniforms against torch's; device ms a launch (200
              captured in a CUDA graph) beside its bounds (46.4 MB of
              output at 3.35 TB/s, its INT32 operations at the card's INT32
-             rate) and the plain composition's ms; phases 5, 17, 20, 22,
-             31 and 33 check ``draw_launches == draw_blocks`` on every
-             group grid (0 on EPaxos's) and print them;
+             rate) and the plain composition's ms; the kernel's EPaxos
+             entry the same way at epaxos25.montecarlo's block (393,216
+             cells, n 25, one step) against ``ref.epaxos_draws_ref``;
+             phases 5, 17, 20, 22, 31 and 33 check ``draw_launches ==
+             draw_blocks`` on every grid, group and EPaxos, and print
+             them;
 17. branches - (run after phase 6, with the batch path) the 14 scenarios of
              the group kernel's other branches (``wan/*``, ``avail/*``,
              ``batching/*``, ``obs/*``, ``reads/*``) at their full grids
@@ -360,8 +363,10 @@ KERNELS = ["seg_fanin", "seg_fanin_sm90", "flash_attention",
            "flash_attention_sm90", "pig_aggregate", "ssm_scan",
            "ssm_scan_sm90", "threefry_draws_sm90"]
 # the threefry draws kernel's launches on the main paths, by phase (the
-# runner's ``draw_launches`` of phases 5, 17, 20, 22, 31 and 33)
+# runner's ``draw_launches`` of phases 5, 17, 20, 22, 31 and 33), and those
+# of its EPaxos entry among them
 DRAW_LAUNCHES = {}
+EPAXOS_DRAW_LAUNCHES = {}
 MAIN = ("scale/batch/N=1025/R=32", "scale/batch/N=257/R=16",
         "scale/batch/replicates/R=3")
 CHECK = "scale/batch/replicates/R=3"
@@ -959,71 +964,125 @@ DRAWS_CELL = dict(C=24_576, B=8, G=3, F=24)    # pig25.montecarlo's block
 
 
 def check_draw_launches(name, sa, tag):
-    """One threefry kernel launch a draw block on a group grid, none on an
-    EPaxos grid (its loop draws through ``prng``); counted by ``tag``."""
+    """One threefry kernel launch a draw block, on a group grid and on an
+    EPaxos grid alike; counted by ``tag`` (EPaxos's also apart)."""
     run = sa["run"]
-    want = 0 if sa["spec"]["protocol"] == "epaxos" else run["draw_blocks"]
-    if run["draw_launches"] != want or run["draw_blocks"] < 1:
+    if run["draw_launches"] != run["draw_blocks"] or run["draw_blocks"] < 1:
         raise SystemExit(f"{name}: {run['draw_launches']} draws kernel "
-                         f"launches for {run['draw_blocks']} draw blocks "
-                         f"(want {want})")
+                         f"launches for {run['draw_blocks']} draw blocks")
     DRAW_LAUNCHES[tag] = DRAW_LAUNCHES.get(tag, 0) + run["draw_launches"]
+    if sa["spec"]["protocol"] == "epaxos":
+        EPAXOS_DRAW_LAUNCHES[tag] = (EPAXOS_DRAW_LAUNCHES.get(tag, 0)
+                                     + run["draw_launches"])
+
+
+def cell_keys(C, device):
+    """The keys of a grid's C cells at run seed 2**31 (``_stack_cells``:
+    PRNGKey(seed x 1_000_003 + cell))."""
+    import torch
+    s = 2**31 * 1_000_003 + torch.arange(C, dtype=torch.int64)
+    return torch.stack([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF], -1).to(
+        device)
+
+
+def time_draws(entry, call, plain, same, want, nbytes, ops):
+    """A draws entry's device time (200 launches captured in a CUDA graph,
+    the replay's output held to ``want`` by ``same``) and host-launched
+    time beside its bounds (``nbytes`` at 3.35 TB/s, ``ops`` INT32
+    operations at the card's INT32 rate) and the plain version's time."""
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    ops_ms = ops / INT32_OPS_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    dev_ms, replayed = graph_ms(call)
+    if not same(replayed, want):
+        raise SystemExit(f"threefry_draws_sm90{entry}: the graph replay's "
+                         f"output != an eager launch's")
+    del replayed
+    host_ms = time_ms(call, 200)
+    plain_ms = time_ms(plain, 20, warmup=3)
+    log(f"draws   {entry} bounds: {nbytes} bytes at 3.35 TB/s = "
+        f"{bytes_ms:.6f} ms; {ops} INT32 ops at {INT32_OPS_S / 1e12:.1f} "
+        f"TOP/s = {ops_ms:.6f} ms")
+    log(f"draws    threefry_draws_sm90{entry}: device {dev_ms:.6f} ms a "
+        f"launch (200 in a CUDA graph; replay == eager: True), "
+        f"{100 * bound / dev_ms:.2f}% of its bound; host-launched "
+        f"{host_ms:.6f} ms a call; the prng composition {plain_ms:.6f} ms "
+        f"({plain_ms / dev_ms:.1f}x); no single PyTorch call computes it")
+    return {"ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def check_draws(device):
     """Phase 36: the draws kernel at pig25.montecarlo's block against the
     composition of ``prng`` calls (``ref.group_draws_ref``) on the card,
     bit for bit; its exponential over every uniform against torch's; its
-    device time (200 launches in a CUDA graph) and host-launched time
-    beside its bounds and the composition's time."""
+    times beside its bounds (``time_draws``)."""
     import torch
     from repro_torch.kernels import draws, ref
     C, B, G, F = (DRAWS_CELL[k] for k in "CBGF")
     n_draw = 2 + 2 * G + 2 * F
-    s = 2**31 * 1_000_003 + torch.arange(C, dtype=torch.int64)
-    key = torch.stack([(s >> 32) & 0xFFFFFFFF, s & 0xFFFFFFFF], -1).to(
-        device)
+    key = cell_keys(C, device)
     call = lambda: draws.group_draws(key, 17, 1, B, n_draw, G)
     plain = lambda: ref.group_draws_ref(key, 17, 1, B, n_draw, G)
+    same = lambda got, want: all(same_bits(a, b)
+                                 for a, b in zip(got[:2], want[:2]))
     before = draws.launches_sm90
     got, want = call(), plain()
     torch.cuda.synchronize()
-    same = all(same_bits(a, b) for a, b in zip(got[:2], want[:2]))
+    equal = same(got, want)
     u = torch.arange(2**23, dtype=torch.float32, device=device) * 2.0**-23
     exp_differ = int((draws.exponential_of(u).view(torch.int32)
                       != (-torch.log1p(-u.double())).float().view(
                           torch.int32)).sum())
     log(f"draws    threefry_draws_sm90 C={C} B={B} G={G} F={F} n=1: "
-        f"launches={draws.launches_sm90 - before} equal={same} "
+        f"launches={draws.launches_sm90 - before} equal={equal} "
         f"(tolerance: bit equality); exponential of all 2**23 uniforms: "
         f"{exp_differ} differ")
-    if not same or exp_differ or draws.launches_sm90 != before + 1:
+    if not equal or exp_differ or draws.launches_sm90 != before + 1:
         raise SystemExit("threefry_draws_sm90 != the prng composition")
     words = C * B * (n_draw + G)
-    nbytes = 4 * words + 16 * C
     # a threefry is 2 + 20 x 3 + 5 x 2 adds, rotates and xors, a word's
     # bits and uniform 3 more; three threefry calls a row derive the keys
-    ops = 75 * words + 3 * 72 * C
-    bytes_ms = nbytes / HBM_BYTES_S * 1e3
-    ops_ms = ops / INT32_OPS_S * 1e3
-    bound = max(bytes_ms, ops_ms)
-    dev_ms, replayed = graph_ms(call)
-    if not all(same_bits(a, b) for a, b in zip(replayed[:2], want[:2])):
-        raise SystemExit("threefry_draws_sm90: the graph replay's output != "
-                         "an eager launch's")
-    host_ms = time_ms(call, 200)
-    plain_ms = time_ms(plain, 20, warmup=3)
-    log(f"draws    bounds: {nbytes} bytes at 3.35 TB/s = {bytes_ms:.6f} ms; "
-        f"{ops} INT32 ops at {INT32_OPS_S / 1e12:.1f} TOP/s = "
-        f"{ops_ms:.6f} ms")
-    log(f"draws    threefry_draws_sm90: device {dev_ms:.6f} ms a launch (200 "
-        f"in a CUDA graph; replay == eager: True), {100 * bound / dev_ms:.2f}"
-        f"% of its bound; host-launched {host_ms:.6f} ms a call; the prng "
-        f"composition {plain_ms:.6f} ms ({plain_ms / dev_ms:.1f}x); no "
-        f"single PyTorch call computes it")
-    return {"ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_ms,
-            "bound_ms": bound,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    return time_draws("", call, plain, same, want, 4 * words + 16 * C,
+                      75 * words + 3 * 72 * C)
+
+
+EPAXOS_DRAWS_CELL = dict(C=393_216, n=25)     # epaxos25.montecarlo's block
+
+
+def check_epaxos_draws(device):
+    """Phase 36, EPaxos: the kernel's EPaxos entry at epaxos25.montecarlo's
+    block against ``ref.epaxos_draws_ref`` on the card, bit for bit; its
+    times beside its bounds (``time_draws``)."""
+    import torch
+    from repro_torch.kernels import draws, ref
+    C, n = EPAXOS_DRAWS_CELL["C"], EPAXOS_DRAWS_CELL["n"]
+    key = cell_keys(C, device)
+    call = lambda: draws.epaxos_draws(key, 17, 1, n)
+    plain = lambda: ref.epaxos_draws_ref(key, 17, 1, n)
+
+    def same(got, want):
+        return torch.equal(got[0], want[0]) and all(
+            same_bits(a, b) for a, b in zip(got[1:], want[1:]))
+    before = draws.launches_sm90
+    got, want = call(), plain()
+    torch.cuda.synchronize()
+    equal = same(got, want)
+    log(f"draws    threefry_draws_sm90 EPaxos C={C} n={n} b=1: "
+        f"launches={draws.launches_sm90 - before} equal={equal} "
+        f"(tolerance: bit equality)")
+    if not equal or draws.launches_sm90 != before + 1:
+        raise SystemExit("threefry_draws_sm90's EPaxos entry != "
+                         "ref.epaxos_draws_ref")
+    del got
+    words = C * (2 * n + 5)
+    # 75 INT32 operations a word, 72 a threefry call deriving keys: fold_in,
+    # the 5-way split and randint's split, 8 a row; an int64 coordinator
+    # and 2n + 3 floats written a row, the key read
+    return time_draws(" EPaxos", call, plain, same, want,
+                      C * (8 + 4 * (2 * n + 3)) + 16 * C,
+                      75 * words + 8 * 72 * C)
 
 
 # --------------------------------------------------------------- phase 5
@@ -4311,6 +4370,8 @@ def main() -> int:
     err = phase("3 kernel", check_kernel, device)
     timing = phase("4 timing", time_kernel, device)
     draws_timing = phase("36 draws", check_draws, device)
+    epaxos_draws_timing = phase("36 epaxos draws", check_epaxos_draws,
+                                device)
     launches = phase("5 main", run_main_path, device)
     phase("5 trace", launches_per_step, device)
     phase("6 check", cross_check, device)
@@ -4450,8 +4511,11 @@ def main() -> int:
                            "threefry_draws_sm90.cu",
                  "replaces": None,
                  "launches": sum(DRAW_LAUNCHES.values()),
-                 "launches_by_path": DRAW_LAUNCHES, "max_abs_err": 0.0,
-                 **draws_timing, "library_ms": None}
+                 "launches_by_path": DRAW_LAUNCHES,
+                 "epaxos_launches": sum(EPAXOS_DRAW_LAUNCHES.values()),
+                 "epaxos_launches_by_path": EPAXOS_DRAW_LAUNCHES,
+                 "max_abs_err": 0.0, **draws_timing,
+                 "epaxos_timing": epaxos_draws_timing, "library_ms": None}
     log(json.dumps({"kernels": [record, flash, pig, ssm, draws_rec]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

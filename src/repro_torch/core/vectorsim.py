@@ -51,7 +51,6 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .. import prng
 from ..convert import cells_from_numpy
 from ..device import resolve_device
 from ..kernels import draws, ops, segfanin
@@ -73,11 +72,11 @@ _MAX_STEPS = 400_000    # hard cap for the exhausted-retry loop
 # random draws are made for a block of scan steps at once (the draws of
 # step i depend only on the cell key and i); the block holds at most this
 # many elements, which bounds the memory of the threefry intermediates (the
-# plain version's) or, through the group loop's kernel, of its outputs
+# plain versions') or, through the draws kernels, of their outputs
 _DRAW_BLOCK_ELEMS = 1 << 21
 # threefry draw blocks issued by every step loop so far (``info``'s
 # ``draw_blocks`` is a call's difference; ``draw_launches`` counts those
-# made by the draws kernel, ``kernels.draws.launches_sm90``)
+# made by the draws kernels, ``kernels.draws.launches_sm90``)
 draw_blocks = 0
 
 KERNELS = ("auto", "torch")
@@ -1158,7 +1157,6 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
     commit_o = torch.empty_like(t0_o)
     active_o = torch.empty(C, steps, dtype=torch.bool, device=dev)
     slow_n = torch.zeros(C, dtype=torch.int32, device=dev)
-    key = cell["key"][:, None, :]
     blk = max(1, min(steps, _DRAW_BLOCK_ELEMS // (C * (2 * n + 5))))
     global draw_blocks
     draw_blocks += -(-steps // blk)
@@ -1169,13 +1167,9 @@ def _epaxos_cell(cell: Dict[str, torch.Tensor], steps: int, kmax: int,
             with spans.span("draws", dev):
                 # split(fold_in(key, i), 5) for every step of the block,
                 # then the reference's five draws in its order
-                idx = torch.arange(i, min(i + blk, steps), device=dev)
-                ks = prng.split(prng.fold_in(key, idx), 5)    # (C, b, 5, 2)
-                coord_blk = prng.randint(ks[:, :, 0], (), 0, n)
-                ecl_blk = prng.exponential(ks[:, :, 1], (2,))
-                eout_blk = prng.exponential(ks[:, :, 2], (n,))
-                eback_blk = prng.exponential(ks[:, :, 3], (n,))
-                ukey_blk = prng.uniform(ks[:, :, 4], ())
+                coord_blk, ecl_blk, eout_blk, eback_blk, ukey_blk = \
+                    ops.epaxos_draws(cell["key"], i, min(blk, steps - i), n,
+                                     plain=kernel == "torch")
         # the earliest-ready client (the first of equal minima)
         cid = torch.argmin(ready, dim=1, keepdim=True)
         t0 = torch.gather(ready, 1, cid)[:, 0]
@@ -1537,10 +1531,11 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     ``info``, when given, receives the run's device name, cell count, scan
     steps, fan-in kernel launches (one a scan step for the group kernel,
     two for EPaxos; none on the CPU), threefry draw blocks
-    (``draw_blocks``) and the draws kernel's launches among them
-    (``draw_launches``: one a group-loop block on the card, none on the
-    CPU or in the EPaxos loop), the window's requests that took EPaxos's
-    slow round (``slow_path_requests``; 0 for the group kernel), the
+    (``draw_blocks``) and the draws kernels' launches among them
+    (``draw_launches``: one a block of either loop on the card, none on
+    the CPU or with ``kernel="torch"``), the window's requests that took
+    EPaxos's slow round (``slow_path_requests``; 0 for the group kernel),
+    the
     chunks, the exhausted-cell retry passes summed over them
     (``retries``), the seconds spent stacking them (``stack_s``) and wall
     seconds (the host clock around work that ends with the results on

@@ -34,7 +34,7 @@ KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",),
                 "pig_aggregate": ("-fmad=false",), "ssm_scan": (),
                 "ssm_scan_sm90": (), "threefry_draws_sm90": ()}
 # libraries built in one build_all call, whichever of them is loaded first:
-# the group step loop's fan-in and draws, so that a checkout's first grid
+# the step loops' fan-in and draws, so that a checkout's first grid
 # runs both nvcc processes side by side
 BUILT_TOGETHER = (("seg_fanin_sm90", "threefry_draws_sm90"),)
 

@@ -1,4 +1,9 @@
-// The group step loop's draw block for Hopper (sm_90a): one launch.
+// The batch step loops' draw blocks for Hopper (sm_90a): one launch a
+// block, in two entries that share the threefry device functions and no
+// logic: the group loop's (threefry_draws_kernel) and the EPaxos loop's
+// (threefry_epaxos_kernel, described after it).
+//
+// The group step loop's draw block.
 //
 // Replaces no TPU kernel: the JAX package draws with jax.random under XLA,
 // which fuses the threefry rounds by itself.  The port's plain version
@@ -133,6 +138,122 @@ threefry_draws_kernel(DrawsIn in) {
   }
 }
 
+// The EPaxos step loop's draw block.  Its plain version is
+// ref.epaxos_draws_ref (prng.py on int64, ~170 elementwise kernels a
+// threefry call, ~1,600 a block).  For every cell c and step s in
+// [i0, i0 + b), row = c x b + (s - i0):
+//
+//     k            = fold_in(key[c], s)
+//     k0 .. k4     = split(k, 5)             = threefry(k, (0, j)), j < 5
+//     coord[row]   = randint(k0, (), 0, n): ka, kb = split(k0), hi and lo
+//                    the bits of word 0 of ka and of kb, and in uint32
+//                    (wrapping) with span = max(n, 1) and mult = ((2**16 %
+//                    span)**2) % span: (hi % span x mult + lo % span) %
+//                    span, written as int64
+//     ecl[row, w]   = exponential of the bits of threefry(k1, (0, w)), w < 2
+//     eout[row, w]  = exponential of word w of k2, w < n
+//     eback[row, w] = exponential of word w of k3, w < n
+//     ukey[row]     = uniform of word 0 of k4
+//
+// The outputs are (C, b) int64, (C, b, 2), (C, b, n), (C, b, n) and (C, b)
+// f32, row major, as prng returns them; every word equals the plain
+// version's bit for bit, by the same argument as the group loop's.
+//
+// What bounds it: a row is only 2n + 5 words (55 at n = 25), and deriving
+// its keys takes 8 threefry calls (fold_in, the 5-way split, randint's
+// split).  One warp a row with every lane deriving the keys, as the group
+// loop's entry does, would repeat that work 32 times: ~100 M threefry calls
+// a block at epaxos25.montecarlo's 393,216 cells against ~25 M useful ones.
+// Here each lane derives the keys of one row once, and the words of a
+// warp's 32 consecutive rows are then shared out lane by lane, each lane
+// taking the keys of the row it works on from the lane that made them
+// (__shfl_sync).  So every threefry call is made once: at 393,216 rows,
+// 393,216 x (55 + 8) = 24.8 M calls, ~1.85e9 INT32 operations, 0.111 ms at
+// 16.7 TOP/s; ~20 M float64 log1p beside them; and 86.5 MB of output,
+// 0.026 ms at 3.35 TB/s.  Integer issue bounds it.  Measured on an H100
+// 80GB HBM3 at 700 W: 0.195 ms a launch (57% of that bound), against 29.7
+// ms for the plain version.  A warp's words of one output are consecutive
+// in memory (its rows are), so its lanes store 32 consecutive words; coord
+// and ukey, one a row, are stored by the lane that owns the row.  Every
+// lane of a warp makes the same number of shuffles (the rows past the end
+// take key 0 and store nothing), so the full-mask shuffles are convergent.
+constexpr int kRows = 32;  // rows a warp
+
+struct EpaxosIn {
+  const int64_t* key;  // (C, 2)
+  int64_t* coord;      // (C, b)
+  float* ecl;          // (C, b, 2)
+  float* eout;         // (C, b, n)
+  float* eback;        // (C, b, n)
+  float* ukey;         // (C, b)
+  int64_t rows;
+  int b, i0, n;
+};
+
+// The exponentials of words [0, words) under each of the warp's rows' keys
+// (k0, k1 of the lane that owns the row), row major from out: lane l takes
+// the flat indices l, l + 32, ..., so the warp stores 32 consecutive floats
+// at a time; indices of the rows past valid are computed and not stored.
+__device__ __forceinline__ void warp_exponentials(uint32_t k0, uint32_t k1,
+                                                  int words, int valid,
+                                                  float* out) {
+  const int lane = threadIdx.x & 31;
+  const int limit = valid * words;
+  const int dr = kRows / words, dw = kRows % words;
+  int r = lane / words, w = lane % words;
+  for (int f = lane; f < kRows * words; f += kRows) {
+    const uint32_t a0 = __shfl_sync(0xffffffffu, k0, r);
+    const uint32_t a1 = __shfl_sync(0xffffffffu, k1, r);
+    const float e = exponential_of(uniform_of(word_bits(a0, a1, w)));
+    if (f < limit) out[f] = e;
+    r += dr;
+    w += dw;
+    if (w >= words) { w -= words; ++r; }
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32)
+threefry_epaxos_kernel(EpaxosIn in) {
+  const int lane = threadIdx.x & 31;
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * kRows;
+  if (base >= in.rows) return;                 // the whole warp
+  const int64_t left = in.rows - base;
+  const int valid = left < kRows ? static_cast<int>(left) : kRows;
+  const int64_t row = base + lane;
+  uint32_t f0 = 0u, f1 = 0u, c0 = 0u, c1 = 0u;
+  if (lane < valid) {
+    const int64_t c = row / in.b;
+    f1 = static_cast<uint32_t>(in.i0 + static_cast<int>(row - c * in.b));
+    c0 = static_cast<uint32_t>(in.key[2 * c]);
+    c1 = static_cast<uint32_t>(in.key[2 * c + 1]);
+  }
+  threefry(c0, c1, f0, f1);                    // k = fold_in(key[c], s)
+  uint32_t k[5][2];                            // split(k, 5)
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    k[j][0] = 0u;
+    k[j][1] = static_cast<uint32_t>(j);
+    threefry(f0, f1, k[j][0], k[j][1]);
+  }
+  uint32_t ka0 = 0u, ka1 = 0u, kb0 = 0u, kb1 = 1u;  // split(k0)
+  threefry(k[0][0], k[0][1], ka0, ka1);
+  threefry(k[0][0], k[0][1], kb0, kb1);
+  const uint32_t hi = word_bits(ka0, ka1, 0u), lo = word_bits(kb0, kb1, 0u);
+  const uint32_t span = in.n > 0 ? static_cast<uint32_t>(in.n) : 1u;
+  const uint32_t m = 65536u % span;
+  const uint32_t mult = (m * m) % span;        // wraps to 0 above 2**16
+  const uint32_t off = (hi % span) * mult + lo % span;
+  const float u = uniform_of(word_bits(k[4][0], k[4][1], 0u));
+  if (lane < valid) {
+    in.coord[row] = static_cast<int64_t>(off % span);
+    in.ukey[row] = u;
+  }
+  warp_exponentials(k[1][0], k[1][1], 2, valid, in.ecl + base * 2);
+  warp_exponentials(k[2][0], k[2][1], in.n, valid, in.eout + base * in.n);
+  warp_exponentials(k[3][0], k[3][1], in.n, valid, in.eback + base * in.n);
+}
+
 // exponential_of over given uniforms: what the tests hold to torch's
 // -log1p(-u) on every value a uniform can take.
 __global__ void threefry_exp_kernel(const float* u, float* out, int count) {
@@ -152,6 +273,23 @@ extern "C" int threefry_draws_sm90_launch(const void* key, void* e, void* u,
   const int blocks = (in.rows + kWarps - 1) / kWarps;
   threefry_draws_kernel<<<blocks, kWarps * 32, 0,
                           static_cast<cudaStream_t>(stream)>>>(in);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int threefry_epaxos_draws_sm90_launch(const void* key, void* coord,
+                                                 void* ecl, void* eout,
+                                                 void* eback, void* ukey,
+                                                 int cells, int b, int i0,
+                                                 int n, void* stream) {
+  EpaxosIn in{static_cast<const int64_t*>(key), static_cast<int64_t*>(coord),
+              static_cast<float*>(ecl), static_cast<float*>(eout),
+              static_cast<float*>(eback), static_cast<float*>(ukey),
+              static_cast<int64_t>(cells) * b, b, i0, n};
+  const int64_t rows_a_block = static_cast<int64_t>(kWarps) * kRows;
+  const int blocks = static_cast<int>((in.rows + rows_a_block - 1)
+                                      / rows_a_block);
+  threefry_epaxos_kernel<<<blocks, kWarps * 32, 0,
+                           static_cast<cudaStream_t>(stream)>>>(in);
   return static_cast<int>(cudaGetLastError());
 }
 

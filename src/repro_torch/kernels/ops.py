@@ -26,6 +26,7 @@ import torch
 from .. import shard
 from . import autograd
 from . import ssm_scan as _ssm_scan
+from .draws import epaxos_draws as _epaxos_draws
 from .draws import group_draws as _group_draws
 from .flash_attention import flash_attention_bshd, flash_attention_padded
 from .pig_aggregate import pig_aggregate as _pig_aggregate_kernel
@@ -215,3 +216,18 @@ def group_draws(key: torch.Tensor, i0: int, n: int, B: int, n_draw: int,
     which the kernel equals bit for bit."""
     _no_dtensor("group_draws", key)
     return _group_draws(key, i0, n, B, n_draw, G, read=read, plain=plain)
+
+
+def epaxos_draws(key: torch.Tensor, i0: int, b: int, n: int,
+                 plain: bool = False):
+    """The EPaxos step loop's draw block for steps [i0, i0 + b) at n nodes:
+    for every cell's key (C, 2) int64, ``k0 .. k4 = split(fold_in(key, s),
+    5)`` and the coordinator ``randint(k0, (), 0, n)`` (C, b) int64 with
+    the f32 draws exponential(k1, (2,)) (C, b, 2), exponential(k2, (n,))
+    and exponential(k3, (n,)) (C, b, n) and uniform(k4, ()) (C, b).  On
+    the card one launch of ``csrc/threefry_draws_sm90.cu``'s EPaxos entry;
+    on the CPU (or with ``plain``) the plain version
+    ``ref.epaxos_draws_ref``, a composition of ``prng`` calls, which the
+    kernel equals bit for bit."""
+    _no_dtensor("epaxos_draws", key)
+    return _epaxos_draws(key, i0, b, n, plain=plain)

@@ -192,3 +192,20 @@ def group_draws_ref(key: torch.Tensor, i0: int, n: int, B: int, n_draw: int,
     r = (prng.uniform(prng.fold_in(ks[:, :, 1], 1), (B,)) if read
          else None)
     return e, u, r
+
+
+def epaxos_draws_ref(key: torch.Tensor, i0: int, b: int, n: int):
+    """The EPaxos step loop's draw block, the plain version: for the cells'
+    keys (C, 2) and the steps s in [i0, i0 + b), ``split(fold_in(key, s),
+    5)`` and the reference's five draws in its order: the coordinator
+    ``randint(k0, (), 0, n)`` (C, b) int64, ``exponential(k1, (2,))`` (C,
+    b, 2), ``exponential(k2, (n,))`` and ``exponential(k3, (n,))`` (C, b,
+    n) and ``uniform(k4, ())`` (C, b); f32 draws, through ``prng``'s
+    threefry on int64."""
+    idx = torch.arange(i0, i0 + b, device=key.device)
+    ks = prng.split(prng.fold_in(key[:, None, :], idx), 5)    # (C, b, 5, 2)
+    return (prng.randint(ks[:, :, 0], (), 0, n),
+            prng.exponential(ks[:, :, 1], (2,)),
+            prng.exponential(ks[:, :, 2], (n,)),
+            prng.exponential(ks[:, :, 3], (n,)),
+            prng.uniform(ks[:, :, 4], ()))
