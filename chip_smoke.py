@@ -6,14 +6,14 @@
 Phases, in order; any failure exits non-zero:
 
 1. device  - require CUDA; print the card's name and power limit;
-2. build   - build the eight kernels from ``src/repro_torch/kernels/csrc``,
+2. build   - build the seven kernels from ``src/repro_torch/kernels/csrc``,
              one ``nvcc`` per source, started together; print each
              kernel's registers, spills and shared memory;
-3. kernel  - hold the fan-in kernels against their plain PyTorch version
-             on the card, bit for bit: the baseline (seg_fanin.cu) and the
-             sm90 kernel's per-slot entry (``seg_fanin_rows``) on the same
-             inputs, and its grouped entry (``FaninGroups``, the main
-             path's) on the step's own layout; the batch shapes (F = 24,
+3. kernel  - hold the fan-in kernel against its plain PyTorch version on
+             the card, bit for bit: its per-slot entry (``seg_fanin_rows``)
+             on each case's per-slot inputs, and its grouped entry
+             (``FaninGroups``, the main path's) on the step's own layout;
+             the batch shapes (F = 24,
              256, 1024 slots, rows = cells x 8) with the main path's
              groups and a ragged layout, Paxos's segments of 1, one
              segment of 1024, padded groups of size 0 (with and without a
@@ -25,18 +25,19 @@ Phases, in order; any failure exits non-zero:
              (F = 8, 16, 24: Paxos and R = 1 to 8 padded to the bucket's
              group count, N = 5 in F = 8 with a tail; 4,096-cell chunks
              at B = 4 and 8), ties, masked
-             slots and a fully masked segment; one launch a call,
-             ``launches_sm90`` moving for the sm90 kernel;
-4. timing  - the three at each batch grid's shape (384 x 1024, 2048 x 256,
-             1536 x 24) on the same inputs: device ms a launch (200 launches
-             captured once in a CUDA graph and replayed: the replay's
-             output equals an eager launch's), host-launched ms a call (200
-             calls from Python), each entry's bound, the plain version, and
-             an empty kernel's graph-replay time, the floor of a launch;
+             slots and a fully masked segment; one launch a call
+             (``launches`` moving by one);
+4. timing  - both entries at each batch grid's shape (384 x 1024,
+             2048 x 256, 1536 x 24) on the same inputs: device ms a
+             launch (200 launches captured once in a CUDA graph and
+             replayed: the replay's output equals an eager launch's),
+             host-launched ms a call (200 calls from Python), each entry's
+             bound, the plain version, and an empty kernel's graph-replay
+             time, the floor of a launch;
 5. main    - ``scale/batch/N=1025/R=32``, ``N=257/R=16`` and
              ``replicates/R=3`` at their full grids through
              ``repro_torch.experiments.runner.run_scenarios`` on cuda; every
-             scan step launches the sm90 fan-in once (``launches_sm90 ==
+             scan step launches the sm90 fan-in once (``launches ==
              scan_steps``), and R=3's mean throughput must sit inside its
              ``benchmarks/reference_bounds.json`` window; a quick N=1025
              run under ``torch.profiler`` counts the device kernels a scan
@@ -61,7 +62,7 @@ Phases, in order; any failure exits non-zero:
              the group kernel's other branches (``wan/*``, ``avail/*``,
              ``batching/*``, ``obs/*``, ``reads/*``) at their full grids
              through ``run_scenarios`` on cuda: ``launches ==
-             launches_sm90 == scan_steps`` for each, no cell exhausted or
+             scan_steps`` for each, no cell exhausted or
              non-finite, the gate's speedup floors on the port's own pairs
              (``batching/paxos/m=8/batch`` >= 2x ``m=1/batch``,
              ``reads/paxos/lease/r=0.9/batch`` >= 2x ``log/r=0.9/batch``)
@@ -84,7 +85,7 @@ Phases, in order; any failure exits non-zero:
              the interface's bound and the EPaxos path's, plain version)
              at 8 x 25 and 4,096 x 17;
 20. conflict - the 8 ``conflict/*/batch`` full grids through
-             ``run_scenarios`` on cuda: ``launches_sm90 == 2 x scan_steps``
+             ``run_scenarios`` on cuda: ``launches == 2 x scan_steps``
              (and the runner's own count), no cell exhausted or
              non-finite, ``conflict/N=25/c=0.1/batch``'s quick mean
              throughput inside its ``reference_bounds.json`` window;
@@ -116,7 +117,7 @@ Phases, in order; any failure exits non-zero:
              ``quick_skip`` too); per scenario
              the cells, scan steps, launches, wall, ms a step and mean
              throughput, with
-             ``launches_sm90 == scan_steps`` (EPaxos: 2 x), the switched
+             ``launches == scan_steps`` (EPaxos: 2 x), the switched
              spec in the artifact, no cell exhausted or non-finite; the
              report rows (``report.rows_for_artifact``: the tables'
              asserts of Eq. 1-3 against the measured loads), Fig. 8's best
@@ -134,7 +135,7 @@ Phases, in order; any failure exits non-zero:
              (``reads/pigpaxos/{lease,log}/r=0.9`` besides) quick through
              ``run_scenarios`` on the host, one scenario a pool worker,
              and the pairs' ``/batch`` halves quick on cuda
-             (``launches_sm90 == scan_steps``, EPaxos 2 x): each batch/DES
+             (``launches == scan_steps``, EPaxos 2 x): each batch/DES
              throughput ratio inside its window, each speedup floor on
              the DES halves, the quick ``bounds`` window of every
              scenario the phase runs, no audited unit in violation; the
@@ -359,9 +360,9 @@ BF16_OPS_S = 989e12        # H100 SXM bf16 dense tensor-core peak
 TF32_OPS_S = 495e12        # H100 SXM TF32 dense tensor-core peak
 # 132 SMs x 64 INT32 lanes x 1.98 GHz: the H100 SXM's 32-bit integer issue
 INT32_OPS_S = 16.7e12
-KERNELS = ["seg_fanin", "seg_fanin_sm90", "flash_attention",
-           "flash_attention_sm90", "pig_aggregate", "ssm_scan",
-           "ssm_scan_sm90", "threefry_draws_sm90"]
+KERNELS = ["seg_fanin_sm90", "flash_attention", "flash_attention_sm90",
+           "pig_aggregate", "ssm_scan", "ssm_scan_sm90",
+           "threefry_draws_sm90"]
 # the threefry draws kernel's launches on the main paths, by phase (the
 # runner's ``draw_launches`` of phases 5, 17, 20, 22, 31 and 33), and those
 # of its EPaxos entry among them
@@ -791,10 +792,9 @@ def megagrid_cases():
 
 
 def check_kernel(device):
-    """Phase 3: both fan-in kernels against the plain version on the card,
-    bit for bit: the baseline and the sm90 kernel's per-slot entry on every
-    case's per-slot inputs, the sm90 grouped entry on its own; one launch a
-    call, ``launches_sm90`` moving only for the sm90 kernel."""
+    """Phase 3: the fan-in kernel against the plain version on the card,
+    bit for bit: its per-slot entry on every case's per-slot inputs, its
+    grouped entry on the case's layout; one launch a call."""
     import torch
     from repro_torch.kernels import segfanin
     from repro_torch.kernels.ref import (seg_fanin_groups_ref,
@@ -808,23 +808,20 @@ def check_kernel(device):
         want_groups = seg_fanin_groups_ref(*step[:3], layout[0], layout[1],
                                            layout[3], *step[3:])
         plan = segfanin.FaninGroups(*layout, B)
-        for kernel, fn, want, sm90 in (
-                ("baseline", lambda: segfanin.seg_fanin_rows_baseline(*rows),
-                 want_rows, 0),
+        for kernel, fn, want in (
                 ("sm90 rows", lambda: segfanin.seg_fanin_rows(*rows),
-                 want_rows, 1),
-                ("sm90 groups", lambda: plan(*step), want_groups, 1)):
-            before = (segfanin.launches, segfanin.launches_sm90)
+                 want_rows),
+                ("sm90 groups", lambda: plan(*step), want_groups)):
+            before = segfanin.launches
             got = fn()
-            launched = (segfanin.launches - before[0],
-                        segfanin.launches_sm90 - before[1])
+            launched = segfanin.launches - before
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             worst = max(worst, err)
-            ok = same_bits(got, want) and launched == (1, sm90)
+            ok = same_bits(got, want) and launched == 1
             log(f"kernel   {kernel:11s} F={F:5d} {name:10s} "
                 f"rows={cells * B:5d} groups={len(sizes) + pad:4d} "
-                f"launches={launched[0]} (sm90 {launched[1]}) equal={ok} "
+                f"launches={launched} equal={ok} "
                 f"(tolerance: bit equality) max_abs_err={err}")
             if not ok:
                 raise SystemExit(f"seg_fanin {kernel} != plain version at "
@@ -885,7 +882,7 @@ FANIN_SHAPES = (("N=1025/R=32", 1024, 48), ("N=257/R=16", 256, 256),
 
 
 def time_kernel(device):
-    """Phase 4: the baseline and the sm90 kernel on the same inputs at each
+    """Phase 4: the fan-in kernel's two entries on the same inputs at each
     batch grid's shape (rows = cells x 8): graph-replay device ms, host-
     launched ms, bounds, the empty kernel's floor.  Returns N=1025's record
     of the grouped entry (the main path's)."""
@@ -910,8 +907,7 @@ def time_fanin(device, name, F, cells, floor_ms):
     rows = rows_of(layout, step)
     plan = segfanin.FaninGroups(*layout, 8)
     R, G, C = cells * 8, len(sizes), cells
-    calls = {"baseline": lambda: segfanin.seg_fanin_rows_baseline(*rows),
-             "sm90 rows": lambda: segfanin.seg_fanin_rows(*rows),
+    calls = {"sm90 rows": lambda: segfanin.seg_fanin_rows(*rows),
              "sm90 groups": lambda: plan(*step)}
     # read each input once, write the output once
     rows_bytes = 4 * (3 * R * F + 2 * C * F + 4 * R)
@@ -948,14 +944,11 @@ def time_fanin(device, name, F, cells, floor_ms):
     plain_groups = time_ms(lambda: seg_fanin_groups_ref(
         *step[:3], layout[0], layout[1], layout[3], *step[3:]), 20, warmup=3)
     log(f"timing   seg_fanin {name}: plain version {plain_rows:.6f} ms "
-        f"(per slot), {plain_groups:.6f} ms (grouped); baseline / sm90 "
-        f"groups device time {res['baseline'][0] / res['sm90 groups'][0]:.2f}"
-        f"x; no single PyTorch call computes it")
+        f"(per slot), {plain_groups:.6f} ms (grouped); no single PyTorch "
+        f"call computes it")
     dev_ms, host_ms = res["sm90 groups"]
     return {"ms": dev_ms, "host_ms": host_ms, "plain_ms": plain_groups,
             "bound_ms": bound["groups"][0], "bound_by": bound["groups"][1],
-            "baseline_ms": res["baseline"][0],
-            "baseline_host_ms": res["baseline"][1],
             "floor_ms": floor_ms}
 
 
@@ -1095,23 +1088,22 @@ def run_main_path(device):
     total = 0
     for name in MAIN:
         (sc,) = registry.select(name)
-        segfanin.launches = segfanin.launches_sm90 = 0
+        segfanin.launches = 0
         t0 = time.perf_counter()
         art = runner.run_scenarios([sc], quick=False, device=device)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, sm90 = segfanin.launches, segfanin.launches_sm90
+        launches = segfanin.launches
         sa = art["scenarios"][0]
         run = sa["run"]
         check_units(name, sa["units"])
         check_draw_launches(name, sa, "5 main")
-        if not launches == sm90 == run["scan_steps"]:
-            raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
-                             f"of seg_fanin_sm90) for {run['scan_steps']} "
-                             f"scan steps")
+        if launches != run["scan_steps"]:
+            raise SystemExit(f"{name}: {launches} fan-in launches for "
+                             f"{run['scan_steps']} scan steps")
         tput = sa["summary"]["throughput"]["mean"]
         log(f"main     {name:28s} cells={run['cells']:4d} "
-            f"scan_steps={run['scan_steps']:5d} launches_sm90={sm90:5d} "
+            f"scan_steps={run['scan_steps']:5d} launches={launches:5d} "
             f"draw_launches={run['draw_launches']} "
             f"wall={wall:.3f}s cells/s={run['cells'] / wall:.2f} "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
@@ -1186,19 +1178,18 @@ def scenario_run(name, quick):
     """Pool worker: one registered scenario through ``run_scenarios`` on
     cuda (``backend_override="batch"`` switches a ``batch_ok``
     discrete-event one), the fan-in counts set to 0 just before and read
-    just after.  Returns the scenario's artifact, its launches and sm90
-    launches, and its wall."""
+    just after.  Returns the scenario's artifact, its launches and its
+    wall."""
     import torch
     from repro_torch.experiments import registry, runner
     from repro_torch.kernels import segfanin
     sc = registry.get(name)
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     t0 = time.perf_counter()
     art = runner.run_scenarios([sc], quick=quick, ignore_quick_skip=True,
                                backend_override="batch", device="cuda")
     torch.cuda.synchronize()
-    return (art["scenarios"][0], segfanin.launches, segfanin.launches_sm90,
-            time.perf_counter() - t0)
+    return art["scenarios"][0], segfanin.launches, time.perf_counter() - t0
 
 
 def units_run(spec, device, kernel):
@@ -1381,9 +1372,9 @@ def check_efanin(device):
                                ("maj-2", majority(F) - 2)):
                 args = efanin_case(F, rows, kcap, device, seed=F * rows)
                 want = seg_fanin_rows_ref(*args)
-                before = segfanin.launches_sm90
+                before = segfanin.launches
                 got = segfanin.seg_fanin_rows(*args)
-                launched = segfanin.launches_sm90 - before
+                launched = segfanin.launches - before
                 torch.cuda.synchronize()
                 err = max_abs_err(got, want)
                 worst = max(worst, err)
@@ -1458,7 +1449,7 @@ def run_grids(pool, tag, grids, windows=()):
     results = pool_runs(pool, scenario_run, tasks,
                         [run_cost(n, quick) for n, quick in tasks])
     arts, total, quick_means = {}, 0, {}
-    for (name, quick), (sa, launches, sm90, wall) in zip(tasks, results):
+    for (name, quick), (sa, launches, wall) in zip(tasks, results):
         run = sa["run"]
         tput = sa["summary"]["throughput"]["mean"]
         if quick:
@@ -1467,11 +1458,10 @@ def run_grids(pool, tag, grids, windows=()):
             continue
         check_units(name, sa["units"])
         rounds = 2 if sa["spec"]["protocol"] == "epaxos" else 1
-        if not (launches == sm90 == run["fanin_launches"]
+        if not (launches == run["fanin_launches"]
                 == rounds * run["scan_steps"]):
-            raise SystemExit(f"{name}: {launches} fan-in launches ({sm90} "
-                             f"of seg_fanin_sm90, the runner counted "
-                             f"{run['fanin_launches']}) for "
+            raise SystemExit(f"{name}: {launches} fan-in launches (the "
+                             f"runner counted {run['fanin_launches']}) for "
                              f"{run['scan_steps']} scan steps x {rounds}")
         check_draw_launches(name, sa, tag)
         if sa["backend"] != "batch" or sa["spec"]["backend"] != "batch":
@@ -1479,7 +1469,7 @@ def run_grids(pool, tag, grids, windows=()):
                              f"batch backend")
         log(f"{tag:8s} {name:36s} {'quick' if quick else 'full':5s} "
             f"cells={run['cells']:3d} scan_steps={run['scan_steps']:5d} "
-            f"launches_sm90={sm90:6d} "
+            f"launches={launches:6d} "
             f"draw_launches={run['draw_launches']:5d} wall={wall:.3f}s "
             f"ms/step={1e3 * run['wall_s'] / run['scan_steps']:.4f} "
             f"tput_mean={tput} {extras_shape(sa['units'])}")
@@ -1636,15 +1626,15 @@ def kernel_equals_plain_chunks(device):
         if vectorsim._pad_spec(cfgs, grid) != vectorsim._pad_spec(cfgs, full):
             raise SystemExit(f"{want_key}: the chunk's shapes are not the "
                              f"bucket's")
-        runs, walls, sm90 = {}, {}, {}
+        runs, walls, launched = {}, {}, {}
         for kernel in ("auto", "torch"):
-            before = segfanin.launches_sm90
+            before = segfanin.launches
             t0 = time.perf_counter()
             runs[kernel] = vectorsim.simulate_grid_sharded(
                 cfgs, grid, 0.1, 0.05, kernel=kernel, chunk=4096,
                 device=device)
             walls[kernel] = time.perf_counter() - t0
-            sm90[kernel] = segfanin.launches_sm90 - before
+            launched[kernel] = segfanin.launches - before
         a, b = runs["auto"], runs["torch"]
         rounds = 2 if want_key[0] == "epaxos" else 1
         differ = [k for k in a if k != "sharding"
@@ -1652,12 +1642,14 @@ def kernel_equals_plain_chunks(device):
         log(f"megagrid sm90 == plain fan-in {want_key}: a chunk of "
             f"{a['sharding']['chunk']} cells ({len(grid)} of the study's, "
             f"{len(cfgs)} configs), {a['scan_steps']} scan steps, "
-            f"launches_sm90 {sm90['auto']} (plain run {sm90['torch']}); "
+            f"launches {launched['auto']} (plain run {launched['torch']}); "
             f"fields that differ: {differ or 'none'}; sm90 "
             f"{walls['auto']:.2f}s, plain {walls['torch']:.2f}s")
-        if differ or sm90 != {"auto": rounds * a["scan_steps"], "torch": 0}:
+        want = {"auto": rounds * a["scan_steps"], "torch": 0}
+        if differ or launched != want:
             raise SystemExit(f"megagrid chunk {want_key}: the sm90 fan-in's "
-                             f"run != the plain fan-in's ({differ}, {sm90})")
+                             f"run != the plain fan-in's ({differ}, "
+                             f"{launched})")
 
 
 def run_megagrid(device, pool):
@@ -1672,12 +1664,12 @@ def run_megagrid(device, pool):
                          MEGAGRID_WINDOWS)[1]
     chunked_equals_unchunked(device)
     kernel_equals_plain_chunks(device)
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     art = megagrid.run_megagrid(
         MEGAGRID_CELLS, device=device,
         progress=lambda s: log(f"megagrid {s}"))
     mg = art["megagrid"]
-    sm90 = segfanin.launches_sm90
+    fanin = segfanin.launches
     rounds = sum(b["scan_steps"] * (2 if b["bucket"][0] == "epaxos" else 1)
                  for b in mg["buckets"])
     for b in mg["buckets"]:
@@ -1689,11 +1681,10 @@ def run_megagrid(device, pool):
         f"{mg['wall_s']} s: {mg['cells_per_s']} cells/s, "
         f"{mg['per_cell_ms']} ms a cell on {mg['device']} through "
         f"{mg['kernel']} ({mg['impl']}, chunk {mg['chunk']}); host stacking "
-        f"{mg['stack_s']} s; scan steps {mg['scan_steps']}; launches_sm90 "
-        f"{sm90} (expected {rounds}); exhausted after retry "
+        f"{mg['stack_s']} s; scan steps {mg['scan_steps']}; launches "
+        f"{fanin} (expected {rounds}); exhausted after retry "
         f"{mg['exhausted']}; roofline {mg['roofline']}")
-    if mg["cells"] < MEGAGRID_CELLS or mg["exhausted"] or sm90 != rounds \
-            or segfanin.launches != sm90:
+    if mg["cells"] < MEGAGRID_CELLS or mg["exhausted"] or fanin != rounds:
         raise SystemExit("megagrid run failed its checks")
     bad = [s["name"] for s in art["scenarios"]
            for p in s["points"] if p["throughput"]["mean"] is None
@@ -1701,7 +1692,7 @@ def run_megagrid(device, pool):
     if bad:
         raise SystemExit(f"megagrid: points without a finite throughput: "
                          f"{bad[:5]}")
-    return launches + sm90
+    return launches + fanin
 
 
 # -------------------------------------------------------------- phase 23

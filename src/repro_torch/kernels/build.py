@@ -22,14 +22,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-# each kernel's own flags: the bit equality of the fan-in kernels and
-# pig_aggregate
-# with their plain versions needs every multiply and add rounded on its own
-# (no FMA contraction); the draws' one float64 log1p rounds as PyTorch's
-# CUDA log1p with or without it (all 2**23 uniforms checked on the card),
-# and keeps nvcc's default, which PyTorch is built with
-KERNEL_FLAGS = {"seg_fanin": ("-fmad=false",),
-                "seg_fanin_sm90": ("-fmad=false",), "flash_attention": (),
+# each kernel's own flags: the bit equality of the fan-in kernel and
+# pig_aggregate with their plain versions needs every multiply and add
+# rounded on its own (no FMA contraction); the draws' one float64 log1p
+# rounds as PyTorch's CUDA log1p with or without it (all 2**23 uniforms
+# checked on the card), and keeps nvcc's default, which PyTorch is built with
+KERNEL_FLAGS = {"seg_fanin_sm90": ("-fmad=false",), "flash_attention": (),
                 "flash_attention_sm90": (),
                 "pig_aggregate": ("-fmad=false",), "ssm_scan": (),
                 "ssm_scan_sm90": (), "threefry_draws_sm90": ()}

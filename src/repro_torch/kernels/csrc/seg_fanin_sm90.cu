@@ -17,7 +17,8 @@
 // (hi = the segment's last slot), one rounding per operation in that order:
 // the build passes -fmad=false so that nvcc contracts no multiply and add
 // into an FMA.  With a segment-constant coef and kcap (the batch layout's)
-// out_i is the capped segment max of csrc/seg_fanin.cu.
+// out_i is the capped segment max, as kernels/ref.py::seg_fanin_rows_ref
+// computes it.
 //
 // Two entries share the code:
 //

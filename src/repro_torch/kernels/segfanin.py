@@ -1,22 +1,16 @@
-"""Launch wrappers of the Hopper segmented fan-in kernels, the counterparts
+"""Launch wrappers of the Hopper segmented fan-in kernel, the counterpart
 of ``repro.kernels.segfanin.seg_fanin_bf``.
 
-Two kernels, two entries:
-
-- ``csrc/seg_fanin_sm90.cu`` (warp-resident segments) serves both entries:
-  ``seg_fanin_rows`` (one row per burst, rows = cells x B, ``segid``/``kcap``
-  once per cell, a per-slot output) and ``FaninGroups``, the step loop's
-  route, which takes the fan-in's inputs as the step has them (``arr_back``
-  with ``peer_mask``, ``B_r`` per group, the per-cell layout and scalars)
-  and writes each group's result (C, B, G) directly;
-- ``csrc/seg_fanin.cu`` (one block per row, neighbour walks in shared
-  memory) is kept as the baseline that ``chip_smoke.py`` times beside it
-  (``seg_fanin_rows_baseline``); nothing on the main path calls it.
+One kernel, ``csrc/seg_fanin_sm90.cu`` (warp-resident segments), two
+entries: ``seg_fanin_rows`` (one row per burst, rows = cells x B,
+``segid``/``kcap`` once per cell, a per-slot output) and ``FaninGroups``,
+the step loop's route, which takes the fan-in's inputs as the step has
+them (``arr_back`` with ``peer_mask``, ``B_r`` per group, the per-cell
+layout and scalars) and writes each group's result (C, B, G) directly.
 
 A CPU tensor goes to the plain version (``ref.seg_fanin_rows_ref``,
-``ref.seg_fanin_groups_ref``); a CUDA tensor launches a kernel or raises.
-``launches`` counts every fan-in kernel launch and nothing else,
-``launches_sm90`` those of ``seg_fanin_sm90.cu`` alone.
+``ref.seg_fanin_groups_ref``); a CUDA tensor launches the kernel or raises.
+``launches`` counts every launch of the kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -30,10 +24,8 @@ from . import build
 from .ref import seg_fanin_groups_ref, seg_fanin_rows_ref
 
 launches = 0
-launches_sm90 = 0
 
-SMEM_LIMIT = 48 * 1024      # neither kernel requests opt-in shared memory
-MAX_THREADS = 256           # the baseline kernel's block
+SMEM_LIMIT = 48 * 1024      # the kernel requests no opt-in shared memory
 WARP = 32
 ROW_WARPS = 8               # a block has max(1, 8 / windows) rows ...
 MAX_WARPS = 32              # ... and one warp a 32-slot window, up to 32
@@ -57,15 +49,9 @@ def sm90_smem_bytes(F: int) -> int:
     return geometry(F)[0] * windows * (3 * WARP * 4 + 2 * 4)
 
 
-def smem_bytes(F: int) -> int:
-    """Shared memory one block of the baseline kernel uses for F slots: six
-    F-slot arrays, as ``seg_fanin_launch`` in its source requests."""
-    return 6 * F * 4
-
-
-# slots a row, for both kernels: what the baseline's block holds (the sm90
-# kernel needs 25,088 B at this F)
-F_MAX = SMEM_LIMIT // smem_bytes(1)
+# slots a row: a block at this F uses sm90_smem_bytes(2048) = 25,088 B,
+# under SMEM_LIMIT
+F_MAX = 2048
 
 
 @functools.cache
@@ -80,16 +66,6 @@ def _lib_sm90():
                lib.seg_fanin_sm90_empty_launch):
         fn.restype = ctypes.c_int
     return lib
-
-
-@functools.cache
-def _launcher_baseline():
-    lib = build.load("seg_fanin")
-    fn = lib.seg_fanin_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 # the current stream of a device as an int: the public accessor builds a
@@ -166,36 +142,6 @@ def seg_fanin_rows(vals: torch.Tensor, coef: torch.Tensor,
     if err:
         raise RuntimeError(f"seg_fanin_sm90 kernel launch failed: CUDA "
                            f"error {err}")
-    global launches, launches_sm90
-    launches += 1
-    launches_sm90 += 1
-    return out
-
-
-def seg_fanin_rows_baseline(vals: torch.Tensor, coef: torch.Tensor,
-                            segid: torch.Tensor, kcap: torch.Tensor,
-                            scal: torch.Tensor,
-                            rows_per_cell: int) -> torch.Tensor:
-    """``seg_fanin_rows`` through the baseline kernel ``csrc/seg_fanin.cu``
-    (CUDA tensors only)."""
-    if vals.device.type != "cuda":
-        raise ValueError(f"seg_fanin_rows_baseline: unsupported device "
-                         f"{vals.device}")
-    _check_rows(vals, coef, segid, kcap, scal, rows_per_cell,
-                "seg_fanin_rows_baseline")
-    R, F = vals.shape
-    out = torch.empty_like(vals)
-    if R == 0 or F == 0:
-        return out
-    threads = min(MAX_THREADS, -(-F // 32) * 32)
-    with torch.cuda.device(vals.device):
-        err = _launcher_baseline()(
-            vals.data_ptr(), coef.data_ptr(), segid.data_ptr(),
-            kcap.data_ptr(), scal.data_ptr(), out.data_ptr(), R, F,
-            rows_per_cell, threads, _stream(vals.device))
-    if err:
-        raise RuntimeError(f"seg_fanin kernel launch failed: CUDA error "
-                           f"{err}")
     global launches
     launches += 1
     return out
@@ -322,9 +268,8 @@ class FaninGroups:
         if err:
             raise RuntimeError(f"seg_fanin_sm90 kernel launch failed: CUDA "
                                f"error {err}")
-        global launches, launches_sm90
+        global launches
         launches += 1
-        launches_sm90 += 1
         return out
 
     def _launch(self, args, out) -> int:

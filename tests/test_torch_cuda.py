@@ -95,11 +95,10 @@ def test_whole_run_through_the_kernel_equals_the_plain_run(cuda):
     """One launch per scan step, and the same results bit for bit."""
     kw = dict(pig=PigConfig(n_groups=3, prc=1), clients=(10, 20),
               seeds=(0, 1), duration=0.1, warmup=0.05, device=cuda)
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     info: dict = {}
     a = vectorsim.simulate_scenario("pigpaxos", 25, info=info, **kw)
-    assert segfanin.launches == segfanin.launches_sm90 \
-        == info["scan_steps"] > 0
+    assert segfanin.launches == info["scan_steps"] > 0
     b = vectorsim.simulate_scenario("pigpaxos", 25, kernel="torch", **kw)
     assert a == b
 
@@ -167,15 +166,13 @@ def test_sm90_entries_match_plain_version(cuda, name, sizes, pad, F):
     layout, step = _groups(F + len(sizes), sizes, pad, F, 3, 8, cuda)
     rows = _rows(layout, step)
     plan = segfanin.FaninGroups(*layout, 8)
-    before = (segfanin.launches, segfanin.launches_sm90)
+    before = segfanin.launches
     got = plan(*step)
     got_rows = segfanin.seg_fanin_rows(*rows)
     torch.cuda.synchronize()
-    assert (segfanin.launches, segfanin.launches_sm90) == (
-        before[0] + 2, before[1] + 2)
+    assert segfanin.launches == before + 2
     assert torch.equal(got, _want_groups(layout, step))
     assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
-    assert torch.equal(segfanin.seg_fanin_rows_baseline(*rows), got_rows)
 
 
 # the WAN scenarios' explicit per-region groups: 16/16/16 at F=48
@@ -193,11 +190,11 @@ def test_sm90_entries_match_plain_version_at_wan_widths(cuda, name, sizes,
     grids' rows (32 cells x 8)."""
     layout, step = _groups(F + 1, sizes, 0, F, 32, 8, cuda)
     rows = _rows(layout, step)
-    before = segfanin.launches_sm90
+    before = segfanin.launches
     got = segfanin.FaninGroups(*layout, 8)(*step)
     got_rows = segfanin.seg_fanin_rows(*rows)
     torch.cuda.synchronize()
-    assert segfanin.launches_sm90 == before + 2
+    assert segfanin.launches == before + 2
     assert torch.equal(got, _want_groups(layout, step))
     assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
 
@@ -220,11 +217,11 @@ def test_sm90_entries_match_plain_version_at_megagrid_layouts(
     4,096-cell chunk and the bucket's requests a step."""
     layout, step = _groups(F + pad + B, sizes, pad, F, 4096, B, cuda)
     rows = _rows(layout, step)
-    before = segfanin.launches_sm90
+    before = segfanin.launches
     got = segfanin.FaninGroups(*layout, B)(*step)
     got_rows = segfanin.seg_fanin_rows(*rows)
     torch.cuda.synchronize()
-    assert segfanin.launches_sm90 == before + 2
+    assert segfanin.launches == before + 2
     assert torch.equal(got, _want_groups(layout, step))
     assert torch.equal(got_rows, ref.seg_fanin_rows_ref(*rows))
 
@@ -266,11 +263,10 @@ def test_branch_run_through_the_kernel_equals_the_plain_run(cuda, branch):
     kw = dict(dict(clients=(8, 20), seeds=(0, 1), duration=0.1,
                    warmup=0.05, device=cuda), **kw)
     proto = "paxos" if branch == "reads" else "pigpaxos"
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     info: dict = {}
     a = vectorsim.simulate_scenario(proto, n, info=info, **kw)
-    assert segfanin.launches == segfanin.launches_sm90 \
-        == info["scan_steps"] > 0
+    assert segfanin.launches == info["scan_steps"] > 0
     assert vectorsim.simulate_scenario(proto, n, **kw) == a
     b = vectorsim.simulate_scenario(proto, n, kernel="torch", **kw)
     assert a == b
@@ -337,10 +333,9 @@ def test_mixed_grid_launches_sm90_once_a_step(cuda):
                                    pig=PigConfig(n_groups=r, prc=1))
             for r in (3, 4)]
     grid = [(ci, k, s) for ci in (0, 1) for k in (10, 30) for s in (0, 1)]
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     a = vectorsim.simulate_grid(cfgs, grid, 0.1, 0.05, device=cuda)
-    assert segfanin.launches == segfanin.launches_sm90 \
-        == a["scan_steps"] > 0
+    assert segfanin.launches == a["scan_steps"] > 0
     b = vectorsim.simulate_grid(cfgs, grid, 0.1, 0.05, kernel="torch",
                                 device=cuda)
     for k, v in a.items():
@@ -860,9 +855,9 @@ def test_epaxos_fanin_layouts_match_plain_version(cuda, F, rows, cap):
     i = lambda a: torch.tensor(a, dtype=torch.int32, device=cuda)
     args = (f(vals), f(np.repeat(wc[:, None], F, 1)), i(np.zeros((rows, F))),
             i(np.full((rows, F), kcap)), f(scal), 1)
-    n0 = segfanin.launches_sm90
+    n0 = segfanin.launches
     got = segfanin.seg_fanin_rows(*args)
-    assert segfanin.launches_sm90 == n0 + 1
+    assert segfanin.launches == n0 + 1
     want = ref.seg_fanin_rows_ref(*args)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
@@ -875,12 +870,12 @@ def test_epaxos_run_through_the_kernel_equals_the_plain_run(cuda):
     kw = dict(workload=WorkloadConfig(key_dist="conflict",
                                       conflict_rate=0.5),
               clients=(10, 20), seeds=(0, 1), duration=0.05, warmup=0.05)
-    segfanin.launches = segfanin.launches_sm90 = 0
+    segfanin.launches = 0
     info: dict = {}
     a = vectorsim.simulate_scenario("epaxos", 9, info=info, device=cuda,
                                     **kw)
-    assert segfanin.launches == segfanin.launches_sm90 \
-        == info["fanin_launches"] == 2 * info["scan_steps"] > 0
+    assert segfanin.launches == info["fanin_launches"] \
+        == 2 * info["scan_steps"] > 0
     assert a == vectorsim.simulate_scenario("epaxos", 9, kernel="torch",
                                             device=cuda, **kw)
     c = vectorsim.simulate_scenario("epaxos", 9, device="cpu", **kw)

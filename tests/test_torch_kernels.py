@@ -169,17 +169,18 @@ def test_rows_wrapper_rejects_other_devices():
 
 
 def test_shared_memory_limit_is_checked_before_launch():
-    assert segfanin.smem_bytes(1024) <= segfanin.SMEM_LIMIT
-    assert segfanin.smem_bytes(4096) > segfanin.SMEM_LIMIT
+    assert segfanin.sm90_smem_bytes(1024) <= segfanin.SMEM_LIMIT
+    assert segfanin.sm90_smem_bytes(4096) > segfanin.SMEM_LIMIT
+    assert segfanin.sm90_smem_bytes(segfanin.F_MAX) <= segfanin.SMEM_LIMIT
 
 
 def test_build_digest_covers_source_and_flags():
-    path = build.library_path("seg_fanin")
+    path = build.library_path("seg_fanin_sm90")
     assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("libseg_fanin-") and path.suffix == ".so"
-    assert "-fmad=false" in build.flags("seg_fanin")
+    assert path.name.startswith("libseg_fanin_sm90-") and path.suffix == ".so"
+    assert "-fmad=false" in build.flags("seg_fanin_sm90")
     assert "-fmad=false" not in build.flags("flash_attention")
-    for name in ("seg_fanin", "flash_attention"):
+    for name in ("seg_fanin_sm90", "flash_attention"):
         assert "arch=compute_90a,code=sm_90a" in build.flags(name)
     assert build.library_path("flash_attention").name.startswith(
         "libflash_attention-")

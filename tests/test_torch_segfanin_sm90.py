@@ -161,13 +161,12 @@ def test_cpu_grouped_call_never_builds_or_counts(monkeypatch):
         raise AssertionError(f"built {name} for a CPU call")
     monkeypatch.setattr(segfanin.build, "load", refuse)
     monkeypatch.setattr(segfanin, "launches", 0)
-    monkeypatch.setattr(segfanin, "launches_sm90", 0)
     d = _grouped_case(5, _main_sizes(24, 3), 0, 24)
     a = _torch_groups(d)
     fan = segfanin.FaninGroups(a[3], a[4], torch.from_numpy(d["sz"]), a[5], 8)
     assert fan.plain
     assert fan(a[0], a[1], a[2], *a[6:]).shape == (2, 8, 3)
-    assert segfanin.launches == segfanin.launches_sm90 == 0
+    assert segfanin.launches == 0
 
 
 # --------------------------------------------- the layout check (set-up)
