@@ -26,10 +26,11 @@ included; the device's busy time inside it takes the device trace.
 The names (what reads each):
 
 * ``entry``: the whole call (``idle_outside_spans_share``);
-* ``lowering``: ``build_config``, ``_stack_cells`` and
-  ``cells_from_numpy``, each chunk (``lowering_ms_per_grid``);
+* ``lowering``: ``build_config``; the configs' rows, once a grid, and
+  each chunk's columns, their copies to the device and the gathers there
+  (``lowering_ms_per_grid``);
 * ``budget``: the padded shapes and the scan-step budget estimated from
-  every grid point (``budget_ms_per_grid``);
+  each distinct (config, clients) point (``budget_ms_per_grid``);
 * ``step_loop``: ``_run_cells``, the kernel's set-up and its loop;
 * ``fanin_setup``: the grouped fan-in's layout check, once a pass;
 * ``draws``: each block of threefry draws, a host span and, on the card,

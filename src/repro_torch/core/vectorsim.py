@@ -367,14 +367,20 @@ def _estimate_rate(cfg: SimConfig, k: int) -> float:
 
 
 # ================================================================== batching
+def _grid_array(grid) -> np.ndarray:
+    """A grid of (config_idx, clients, seed) points as one (cells, 3) int64
+    array (an int64 array as it is, a sequence of tuples converted once)."""
+    return np.asarray(grid, dtype=np.int64).reshape(-1, 3)
+
+
 def _pad_spec(configs: Sequence[SimConfig], grid) -> Dict[str, int]:
     """The padded-shape signature a (configs, grid) batch runs under.  A
-    chunked run computes it ONCE over the whole grid and passes it to every
-    chunk's ``_stack_cells``, so every chunk has the whole grid's shapes."""
+    chunked run computes it ONCE over the whole grid and lowers every chunk
+    under it, so every chunk has the whole grid's shapes."""
     kind = configs[0].kind
     spec = {
         "nreg": max(c.region_latency.shape[0] for c in configs),
-        "kmax": max(k for _, k, _ in grid),
+        "kmax": int(_grid_array(grid)[:, 1].max()),
         "wmax": max([c.down.shape[1] for c in configs
                      if c.down is not None] + [1]),
     }
@@ -397,6 +403,9 @@ _CELL_FIELDS = (
     "warmup", "duration", "n_followers", "reg_nodes", "fq",
     "w_follower", "downL", "downF", "slowF", "slowL",
     "key_mode", "n_keys", "conflict_rate", "key_cdf", "read_ratio")
+# the fields that vary between the cells of one config (``_cell_columns``);
+# every other field is its config's row (``_config_rows``)
+_COLUMNS = ("k_clients", "key")
 
 
 def _config_row(c: SimConfig, kind: str, spec: Dict[str, int], stop: float,
@@ -494,38 +503,60 @@ def _batch_kind(configs: Sequence[SimConfig]) -> str:
     return kind
 
 
+def _config_rows(configs: Sequence[SimConfig], spec: Dict[str, int],
+                 duration: float, warmup: float) -> Dict[str, np.ndarray]:
+    """Every config's row (``_config_row``) stacked once: {field:
+    (configs, ...)} for each field but the ``_COLUMNS``."""
+    kind = _batch_kind(configs)
+    if kind == "epaxos" and any(c.n != spec["nmax"] for c in configs):
+        raise ValueError("epaxos batches must share one cluster size")
+    rows = [_config_row(c, kind, spec, warmup + duration, warmup, duration)
+            for c in configs]
+    return {name: np.stack([r[name] for r in rows])
+            for name in _CELL_FIELDS if name not in _COLUMNS}
+
+
+def _cell_columns(grid: np.ndarray) -> Dict[str, np.ndarray]:
+    """The per-cell columns of a ``_grid_array``: the config index ``ci``,
+    ``k_clients`` and the keys ``PRNGKey(seed * 1_000_003 + ci)``."""
+    ci = grid[:, 0]
+    s = grid[:, 2] * 1_000_003 + ci
+    return {"ci": ci, "k_clients": grid[:, 1].astype(np.int32),
+            "key": np.stack([(s >> 32) & 0xFFFFFFFF,
+                             s & 0xFFFFFFFF], -1).astype(np.uint32)}
+
+
 def _stack_cells(configs: Sequence[SimConfig], grid, duration: float,
                  warmup: float, pad_to: Optional[Dict[str, int]] = None):
     """Stack (config_idx, clients, seed) grid points into one batch dict of
-    numpy arrays, key for key and bit for bit the reference's.
+    numpy arrays, key for key and bit for bit the reference's: each
+    config field taken from the configs' rows by the cells' config index.
 
     ``pad_to`` (a ``_pad_spec`` dict, possibly of a larger grid) pins the
-    padded shapes, so that every chunk of a chunked run has the whole
-    grid's.  The cells of one config differ only in ``k_clients`` and
-    ``key``: each config's row is built once and taken by index, and the
-    keys ``PRNGKey(seed * 1_000_003 + ci)`` are computed for all cells at
-    once."""
+    padded shapes.  The runners never build this per-cell batch: they ship
+    the rows and the columns and gather on the device
+    (``_device_cells``)."""
     kind = _batch_kind(configs)
     spec = pad_to or _pad_spec(configs, grid)
-    if kind == "epaxos" and any(c.n != spec["nmax"] for c in configs):
-        raise ValueError("epaxos batches must share one cluster size")
-    stop = warmup + duration
-    rows = [_config_row(c, kind, spec, stop, warmup, duration)
-            for c in configs]
-    g = np.asarray([(ci, k, seed) for ci, k, seed in grid],
-                   dtype=np.int64).reshape(-1, 3)
-    ci = g[:, 0]
-    batch = {}
-    for name in _CELL_FIELDS:
-        if name == "k_clients":
-            batch[name] = g[:, 1].astype(np.int32)
-        elif name == "key":
-            s = g[:, 2] * 1_000_003 + ci
-            batch[name] = np.stack([(s >> 32) & 0xFFFFFFFF,
-                                    s & 0xFFFFFFFF], -1).astype(np.uint32)
-        else:
-            batch[name] = np.stack([r[name] for r in rows])[ci]
+    rows = _config_rows(configs, spec, duration, warmup)
+    cols = _cell_columns(_grid_array(grid))
+    batch = {name: (cols[name] if name in _COLUMNS
+                    else np.take(rows[name], cols["ci"], axis=0))
+             for name in _CELL_FIELDS}
     return batch, kind, spec["kmax"]
+
+
+def _device_cells(rows: Dict[str, torch.Tensor],
+                  cols: Dict[str, np.ndarray], device):
+    """The cell dict on ``device``, ``cells_from_numpy(_stack_cells(...))``
+    key for key and bit for bit: the host ``cols`` copied, each config
+    field gathered from the configs' ``rows`` (already on ``device``) by
+    the cells' config index.  Returns it and the bytes copied."""
+    c = cells_from_numpy(cols, device)
+    cells = {name: (c[name] if name in _COLUMNS
+                    else rows[name].index_select(0, c["ci"]))
+             for name in _CELL_FIELDS}
+    return cells, sum(t.nbytes for t in c.values())
 
 
 # ============================================================== group kernel
@@ -1335,24 +1366,48 @@ def simulate_grid(configs: Sequence[SimConfig], grid, duration: float,
     return out
 
 
-def _run_on_devices(batch, devices, steps, kmax, breq, kernel, flags):
+def _step_budget(configs: Sequence[SimConfig], grid: np.ndarray,
+                 kmax: int, stop: float) -> int:
+    """A grid's first scan-step budget.  Requests are only issued inside
+    [0, stop); the rate bound is optimistic, and the exhausted-retry loop
+    is the safety net.  The bound depends on a cell's (config, clients)
+    point alone, so it is estimated once a distinct point (found as
+    ci * (kmax + 1) + k): the per-cell maximum, to the bit."""
+    w = kmax + 1
+    pts = np.unique(grid[:, 0] * w + grid[:, 1]).tolist()
+    rate = max(_estimate_rate(configs[p // w], p % w) for p in pts)
+    return int(rate * stop * 1.15) + kmax + 64
+
+
+def _chunk(grid: np.ndarray, lo: int, size: int) -> np.ndarray:
+    """Cells [lo, lo + size) of a grid array, a ragged last chunk padded
+    with its last cell: every chunk one shape."""
+    part = grid[lo:lo + size]
+    return np.concatenate([part, np.repeat(part[-1:], size - len(part), 0)])
+
+
+def _run_on_devices(rows, cols, devices, steps, kmax, breq, kernel, flags):
     """One chunk's cells split evenly over ``devices`` (the cell count is a
-    multiple of theirs): every device's share is issued from this thread in
-    turn (its launches are asynchronous), then every result is brought to
-    the host."""
-    per = len(batch["key"]) // len(devices)
-    outs = []
+    multiple of theirs): every device's share of the columns ``cols`` is
+    copied and gathered with that device's ``rows`` (``_device_cells``) and
+    issued from this thread in turn (its launches are asynchronous), then
+    every result is brought to the host.  Returns the results and the
+    bytes copied."""
+    per = len(cols["ci"]) // len(devices)
+    outs, copied = [], 0
     for d, dev in enumerate(devices):
         with spans.span("lowering"):
-            cells = cells_from_numpy({k: v[d * per:(d + 1) * per]
-                                      for k, v in batch.items()}, dev)
+            cells, nbytes = _device_cells(
+                rows[d], {k: v[d * per:(d + 1) * per]
+                          for k, v in cols.items()}, dev)
+        copied += nbytes
         counts: Dict[str, torch.Tensor] = {}
         outs.append(_run_cells(cells, steps, kmax, breq, kernel,
                                counts=counts, **flags))
         outs[-1].update(counts)
     with spans.span("collect"):
         return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
-                for k in outs[0]}
+                for k in outs[0]}, copied
 
 
 def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
@@ -1365,18 +1420,26 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
     ``repro.core.vectorsim.simulate_grid_sharded``).  ``devices`` defaults
     to every visible CUDA device, or ``[cpu]`` when ``device="cpu"``.
 
-    Each chunk holds ``chunk`` cells (rounded down to a multiple of the
-    device count, at least one a device), a ragged last chunk padded with
-    its last cell; shapes are pinned grid-wide (``_pad_spec``); a chunk's
-    exhausted cells retry inside it with doubled budgets, padded back to a
-    device multiple; a chunk's results reach the host before the next is
-    stacked, so device memory is bounded by one chunk.  Per-cell results
-    are bit-identical to one ``simulate_grid`` call on the same cells.
+    ``grid`` is a sequence of (config_idx, clients, seed) tuples or a
+    (cells, 3) int64 array.  The step budget is estimated once a distinct
+    (config, clients) point.  The configs' rows are stacked and copied to
+    every device once a grid; a chunk copies its cells' columns alone
+    (config index, clients, key) and gathers the rows to its cells on the
+    device.  Each chunk holds ``chunk`` cells (rounded down to a multiple
+    of the device count, at least one a device), a ragged last chunk padded
+    with its last cell; shapes are pinned grid-wide (``_pad_spec``); a
+    chunk's exhausted cells retry inside it with doubled budgets, padded
+    back to a device multiple; a chunk's results reach the host before the
+    next is lowered, so device memory is bounded by one chunk.  Per-cell
+    results are bit-identical to one ``simulate_grid`` call on the same
+    cells.
 
     Returns the ``simulate_grid`` dict plus ``out["sharding"]``: device
     count, ``impl`` ("chunked"), the fan-in (``fanin_name``),
-    chunk size and per chunk {cells, wall_s (stacking included), stack_s,
-    steps, scan_steps, retries}.
+    chunk size and per chunk {cells, wall_s (lowering included), stack_s
+    (the host's lowering), lowered_bytes (copied host-to-device, retries
+    included), steps, scan_steps, retries}; the first chunk's stack_s and
+    lowered_bytes include the configs' rows.
     """
     if kernel not in KERNELS:
         raise ValueError(f"kernel must be one of {KERNELS}, got {kernel!r}")
@@ -1392,13 +1455,11 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
         raise ValueError("obs timelines are group-kernel only — the epaxos "
                          "kernel has no single-leader FIFO to observe")
     with spans.span("budget"):
+        grid = _grid_array(grid)
         spec = _pad_spec(configs, grid)
         kmax = spec["kmax"]
         if steps is None:
-            # requests are only issued inside [0, stop); the rate bound is
-            # optimistic, and the exhausted-retry loop is the safety net
-            rate = max(_estimate_rate(configs[ci], k) for ci, k, _ in grid)
-            steps = int(rate * (warmup + duration) * 1.15) + kmax + 64
+            steps = _step_budget(configs, grid, kmax, warmup + duration)
     faulty = any(c.down is not None or c.slow is not None for c in configs)
     read = any(c.read_ratio > 0.0 for c in configs)
     nb = (int(np.ceil((warmup + duration + _DRAIN_S) / _TL_BUCKET)) + 1
@@ -1413,18 +1474,24 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
     steps_arr = np.empty(n_cells, np.int32)
     meta = []
     for lo in range(0, n_cells, chunk):
-        part = list(grid[lo:lo + chunk])
-        real = len(part)
-        part += [part[-1]] * (chunk - real)   # every chunk one shape
+        part = _chunk(grid, lo, chunk)
+        real = min(chunk, n_cells - lo)
         t0 = time.perf_counter()
+        lowered = 0
         with spans.span("lowering"):
-            batch, _, _ = _stack_cells(configs, part, duration, warmup,
-                                       pad_to=spec)
+            if lo == 0:
+                # the configs' rows, on every device once a grid
+                rows = [cells_from_numpy(_config_rows(configs, spec,
+                                                      duration, warmup), dev)
+                        for dev in devices]
+                lowered = sum(t.nbytes for r in rows for t in r.values())
+            cols = _cell_columns(part)
         stack_s = time.perf_counter() - t0
         steps_c = steps0
         scan = -(-steps_c // breq)
-        cout = _run_on_devices(batch, devices, scan, kmax, breq, kernel,
-                               flags)
+        cout, nbytes = _run_on_devices(rows, cols, devices, scan, kmax, breq,
+                                       kernel, flags)
+        lowered += nbytes
         scans, retries = scan, 0
         csteps = np.full(chunk, steps_c, np.int32)
         while cout["exhausted"][:real].any() and steps_c < _MAX_STEPS:
@@ -1434,9 +1501,10 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
             # retry the exhausted subset, padded back to a device multiple
             ridx = np.resize(idx, -(-len(idx) // D) * D)
             with spans.span("retry"):
-                sub = _run_on_devices(
-                    {k: v[ridx] for k, v in batch.items()}, devices, scan,
-                    kmax, breq, kernel, flags)
+                sub, nbytes = _run_on_devices(
+                    rows, {k: v[ridx] for k, v in cols.items()}, devices,
+                    scan, kmax, breq, kernel, flags)
+            lowered += nbytes
             for k, v in sub.items():
                 cout[k][idx] = v[:len(idx)]
             csteps[idx] = steps_c
@@ -1449,6 +1517,7 @@ def simulate_grid_sharded(configs: Sequence[SimConfig], grid,
             out[k][lo:lo + real] = v[:real]
         steps_arr[lo:lo + real] = csteps[:real]
         meta.append({"cells": real, "wall_s": wall, "stack_s": stack_s,
+                     "lowered_bytes": lowered,
                      "steps": int(csteps[:real].max()), "scan_steps": scans,
                      "retries": retries})
     out["steps"] = steps_arr
@@ -1537,7 +1606,9 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
     EPaxos's slow round (``slow_path_requests``; 0 for the group kernel),
     the
     chunks, the exhausted-cell retry passes summed over them
-    (``retries``), the seconds spent stacking them (``stack_s``) and wall
+    (``retries``), the seconds spent lowering them on the host
+    (``stack_s``), the bytes the lowering copied host-to-device
+    (``lowered_bytes``: the config's row, then 32 a cell a pass) and wall
     seconds (the host clock around work that ends with the results on
     the host).  Its spans (``core/spans.py``) are recorded only inside
     ``spans.recording()`` or under the profiler.
@@ -1557,7 +1628,11 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
                     raise ValueError(f"clients={k} not divisible by "
                                      f"batch_m={m}: one kernel lane carries "
                                      f"a whole batch of {m} clients")
-        grid = [(0, int(k) // m, int(s)) for k in clients for s in seeds]
+        # (0, clients, seed) with the clients outer and the seeds inner
+        ks = np.asarray([int(k) // m for k in clients], np.int64)
+        ss = np.asarray([int(s) for s in seeds], np.int64)
+        grid = np.stack([np.zeros(len(ks) * len(ss), np.int64),
+                         np.repeat(ks, len(ss)), np.tile(ss, len(ks))], 1)
         dev = resolve_device(device)
         # simulate_grid's one chunk, keeping its record
         out = simulate_grid_sharded([cfg], grid, duration, warmup,
@@ -1578,6 +1653,8 @@ def simulate_scenario(protocol: str, n: int, *, pig=None, topo=None,
                          "chunks": len(chunks),
                          "retries": sum(c["retries"] for c in chunks),
                          "stack_s": sum(c["stack_s"] for c in chunks),
+                         "lowered_bytes": sum(c["lowered_bytes"]
+                                              for c in chunks),
                          "wall_s": time.perf_counter() - t0})
         # mean reply rank correction (seconds); 0 when unbatched
         lat_adj = (0.0 if m == 1

@@ -908,6 +908,32 @@ def test_chunked_equals_unchunked_on_the_card(cuda):
                 assert np.array_equal(want[k], got[k], equal_nan=True), k
 
 
+def test_lowering_gathers_on_the_card_to_the_stacked_batch(cuda):
+    """The runner's lowering of a 4,096-cell EPaxos grid on the card (the
+    config's row shipped once, the cells' columns, the gather there) ==
+    the per-cell batch ``_stack_cells`` builds, copied whole: key for key,
+    dtype for dtype, bit for bit."""
+    from repro_torch.convert import cells_from_numpy
+    from repro_torch.core.workload import WorkloadConfig
+    cfgs = [vectorsim.build_config("epaxos", 25, workload=WorkloadConfig(
+        key_dist="conflict", conflict_rate=0.02))]
+    grid = [(0, k, s) for k in (10, 20, 40)
+            for s in range(2**31, 2**31 + 1366)][:4096]
+    spec = vectorsim._pad_spec(cfgs, grid)
+    rows = cells_from_numpy(vectorsim._config_rows(cfgs, spec, 0.1, 0.05),
+                            cuda)
+    got, nbytes = vectorsim._device_cells(
+        rows, vectorsim._cell_columns(vectorsim._grid_array(grid)), cuda)
+    want = cells_from_numpy(
+        vectorsim._stack_cells(cfgs, grid, 0.1, 0.05)[0], cuda)
+    assert nbytes == 32 * 4096 and list(got) == list(want)
+    for k in want:
+        assert got[k].device == want[k].device, k
+        assert got[k].dtype == want[k].dtype, k
+        assert got[k].shape == want[k].shape and got[k].is_contiguous(), k
+        assert torch.equal(got[k], want[k]), k
+
+
 def test_jaxsim_card_equals_cpu(cuda):
     from repro_torch import prng
     from repro_torch.core import jaxsim
